@@ -1,0 +1,196 @@
+"""Whisper encoder-decoder (whisper-tiny class) on PyTorch tensors.
+
+The functions of the reference (`audio_transformers_tpu/models/whisper/
+model.py`) for the serving path, over the port's parameter trees
+(`core.params`):
+
+  encoder: conv1d(n_mels->D,k3,p1) GELU -> conv1d(D->D,k3,s2,p1) GELU
+           -> +positions -> N pre-LN blocks -> LN
+  decoder step: tok embed + learned position -> N pre-LN blocks (causal
+           self-attention over the KV cache, cross-attention over the
+           precomputed encoder K/V, MLP) -> LN
+
+Self and cross K/V keep the reference's time-minor (B, H, hd, T) layout.
+Cross-attention runs through the hand-written kernel
+`ops.decode_attention.decode_cross_attention` (its plain version on the
+CPU); self-attention over the short cache stays plain PyTorch, as it
+stays XLA in the reference. Unlike the reference's functional cache, the
+port's cache is written in place: `apply_decoder_step` fills column
+`cache["index"]` of each layer's buffers and advances the index.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from audio_transformers_tpu.core.config import WhisperConfig
+from audio_transformers_tpu_torch.core.params import map_tensors
+from audio_transformers_tpu_torch.ops import nn
+from audio_transformers_tpu_torch.ops.decode_attention import \
+    decode_cross_attention
+
+Tensor = torch.Tensor
+
+
+def _self_block(p: dict, x: Tensor, heads: int) -> Tensor:
+    h = nn.layer_norm(p["self_ln"], x)
+    x = x + nn.multihead_attention(p["self_attn"], h, h, num_heads=heads)
+    h = nn.layer_norm(p["mlp_ln"], x)
+    return x + nn.linear(p["fc2"], nn.gelu(nn.linear(p["fc1"], h)))
+
+
+def encode(params: dict, cfg: WhisperConfig, mel: Tensor) -> Tensor:
+    """mel (B, T_mel, n_mels) -> encoder states (B, T_mel // 2, d_model),
+    in mel's dtype. Attention is matmul + float32 softmax."""
+    p = params["encoder"]
+    x = nn.gelu(nn.conv1d(p["conv1"], mel, padding=1))
+    x = nn.gelu(nn.conv1d(p["conv2"], x, stride=2, padding=1))
+    x = x + p["pos"][None, : x.shape[1], :].to(x.dtype)
+    for bp in p["blocks"]:
+        x = _self_block(bp, x, cfg.num_heads)
+    return nn.layer_norm(p["ln"], x)
+
+
+def init_cache(cfg: WhisperConfig, batch: int, *,
+               max_len: Optional[int] = None, dtype=torch.float32,
+               device=None, quant: str = "none") -> dict:
+    """Self-attention K/V buffers of static length, one per layer, in the
+    time-minor (B, H, hd, L) layout, and the write index (a host int)."""
+    if quant == "int8":
+        raise NotImplementedError("the int8 self-KV cache is not ported yet")
+    if quant != "none":
+        raise ValueError(f"unknown kv_quant {quant!r}")
+    max_len = max_len or cfg.max_target_positions
+    shape = (batch, cfg.num_heads, cfg.head_dim, max_len)
+    return {"k": [torch.zeros(shape, dtype=dtype, device=device)
+                  for _ in range(cfg.decoder_layers)],
+            "v": [torch.zeros(shape, dtype=dtype, device=device)
+                  for _ in range(cfg.decoder_layers)],
+            "index": 0}
+
+
+def prepare_decode_params(params: dict, cfg: WhisperConfig,
+                          dtype=None) -> dict:
+    """Step-ready decoder weights, built once outside the decode loop:
+    per layer the self-attention q/k/v projections fused into one (3D, D)
+    weight (whisper's k projection has no bias: a zero bias keeps the
+    fused add uniform), and every tensor cast to `dtype` once."""
+    d = cfg.d_model
+    layers = []
+    for bp in params["decoder"]["blocks"]:
+        sa = bp["self_attn"]
+        qkv_w = torch.cat([sa["q"]["w"], sa["k"]["w"], sa["v"]["w"]], dim=0)
+        kb = sa["k"].get("b", torch.zeros(d, dtype=sa["q"]["b"].dtype,
+                                          device=sa["q"]["b"].device))
+        qkv_b = torch.cat([sa["q"]["b"], kb, sa["v"]["b"]])
+        layers.append({
+            "self_ln": bp["self_ln"],
+            "qkv": {"w": qkv_w, "b": qkv_b},
+            "self_o": sa["o"],
+            "cross_ln": bp["cross_ln"],
+            "cross_q": bp["cross_attn"]["q"],
+            "cross_o": bp["cross_attn"]["o"],
+            "mlp_ln": bp["mlp_ln"],
+            "fc1": bp["fc1"],
+            "fc2": bp["fc2"],
+        })
+    dec = params["decoder"]
+    out = {"embed": dec["embed"], "pos": dec["pos"], "blocks": layers,
+           "ln": dec["ln"]}
+    if dtype is not None:
+        out = map_tensors(out, lambda t: t.to(dtype))
+    return out
+
+
+def precompute_cross_attention(params: dict, cfg: WhisperConfig, enc: Tensor,
+                               *, quant: str = "none") -> dict:
+    """Cross-attention K/V of every decoder layer, computed once per clip.
+
+    Returns per-layer lists {"k", "v"} of (B, H, hd, T) tensors in enc's
+    dtype, emitted directly in the time-minor layout (weight @ enc^T).
+    quant="int8" stores int8 values with a per-key K scale (B, H, T) and
+    a per-channel V scale (B, H, hd), both float32, as the reference does;
+    the cross-attention kernel folds them at the edges."""
+    if quant == "int4":
+        raise NotImplementedError("int4 cross K/V is not ported yet")
+    if quant not in ("none", "int8"):
+        raise ValueError(f"unknown kv_quant {quant!r}")
+    out = {"k": [], "v": []}
+    if quant == "int8":
+        out["k_scale"], out["v_scale"] = [], []
+    b, t, _ = enc.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    enc_t = enc.transpose(1, 2)                           # (B, D, T)
+    for bp in params["decoder"]["blocks"]:
+        kv = []
+        for name in ("k", "v"):
+            lin = bp["cross_attn"][name]
+            y = torch.matmul(lin["w"].to(enc.dtype), enc_t).float()
+            if "b" in lin:
+                y = y + lin["b"].float()[None, :, None]
+            kv.append(y.to(enc.dtype).reshape(b, h, hd, t))
+        k, v = kv
+        if quant == "none":
+            out["k"].append(k)
+            out["v"].append(v)
+            continue
+        k_scale = k.abs().amax(dim=2, keepdim=True).float().clamp(
+            min=1e-6) / 127.0                             # (B, H, 1, T)
+        v_scale = v.abs().amax(dim=3, keepdim=True).float().clamp(
+            min=1e-6) / 127.0                             # (B, H, hd, 1)
+        out["k"].append(torch.round(k.float() / k_scale).to(torch.int8))
+        out["v"].append(torch.round(v.float() / v_scale).to(torch.int8))
+        out["k_scale"].append(k_scale[:, :, 0, :].contiguous())
+        out["v_scale"].append(v_scale[:, :, :, 0].contiguous())
+    return out
+
+
+def apply_decoder_step(sp: dict, cfg: WhisperConfig, token: Tensor,
+                       cache: dict, cross: dict) -> Tuple[Tensor, dict]:
+    """One decode step over the step-ready weights `sp`
+    (`prepare_decode_params`). token (B,) int64 -> (hidden (B, d_model),
+    cache).
+
+    Writes this step's self K/V at column cache["index"] (in place),
+    attends over columns [0, index], then advances the index."""
+    idx = cache["index"]
+    b = token.shape[0]
+    d, h_heads, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    scale = 1.0 / math.sqrt(hd)
+    cross_quant = "k_scale" in cross
+
+    x = nn.embedding_lookup(sp["embed"], token) + sp["pos"][idx][None, :]
+    x = x.to(sp["blocks"][0]["qkv"]["w"].dtype)
+    for li, bp in enumerate(sp["blocks"]):
+        h = nn.layer_norm(bp["self_ln"], x)
+        qkv = nn.linear(bp["qkv"], h)                     # (B, 3D)
+        q = qkv[:, :d].reshape(b, h_heads, hd)
+        k_all, v_all = cache["k"][li], cache["v"][li]
+        k_all[..., idx] = qkv[:, d:2 * d].reshape(b, h_heads, hd)
+        v_all[..., idx] = qkv[:, 2 * d:].reshape(b, h_heads, hd)
+        # columns past idx are masked out in the reference (exp of
+        # finfo.min underflows to 0), so attending over [0, idx] is equal
+        k_vis, v_vis = k_all[..., :idx + 1], v_all[..., :idx + 1]
+        logits = torch.einsum("bhd,bhdk->bhk", q.float(),
+                              k_vis.float()) * scale
+        probs = torch.softmax(logits, dim=-1).to(v_all.dtype)
+        attn = torch.einsum("bhk,bhdk->bhd", probs.float(),
+                            v_vis.float()).to(x.dtype)
+        x = x + nn.linear(bp["self_o"], attn.reshape(b, d))
+
+        h = nn.layer_norm(bp["cross_ln"], x)
+        cq = nn.linear(bp["cross_q"], h).reshape(b, h_heads, hd)
+        cattn = decode_cross_attention(
+            cq, cross["k"][li], cross["v"][li],
+            k_scale=cross["k_scale"][li] if cross_quant else None,
+            v_scale=cross["v_scale"][li] if cross_quant else None,
+            scale=scale).to(x.dtype)
+        x = x + nn.linear(bp["cross_o"], cattn.reshape(b, d))
+
+        h = nn.layer_norm(bp["mlp_ln"], x)
+        x = x + nn.linear(bp["fc2"], nn.gelu(nn.linear(bp["fc1"], h)))
+    cache["index"] = idx + 1
+    return nn.layer_norm(sp["ln"], x), cache
