@@ -5,5 +5,7 @@ from audio_transformers_tpu.core.config import (  # noqa: F401
     DecodeConfig,
     EmotionWhisperConfig,
     MelConfig,
+    OptimizerConfig,
+    TrainConfig,
     WhisperConfig,
 )

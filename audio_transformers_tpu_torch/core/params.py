@@ -11,7 +11,9 @@ tensors with the same keys as the reference package's pytrees
   encoder `pos` parameter, decoder positions) keeps its shape.
 
 `from_jax_params` and `to_jax_params` convert between the two; a round
-trip returns the JAX tree bit for bit. `init` builds a fresh tree from an
+trip returns the JAX tree bit for bit. `leaves_with_path`,
+`trainable_leaves` and `set_trainable` serve the trainer: every leaf is
+trained except the frozen encoder positional table (`FROZEN`). `init` builds a fresh tree from an
 explicit `torch.Generator` with the reference's distributions, for
 machines where no JAX parameters can be made.
 """
@@ -80,6 +82,38 @@ def map_tensors(tree: Any, fn) -> Any:
 
 def to_device(tree: Any, device) -> Any:
     return map_tensors(tree, lambda t: t.to(device))
+
+
+# leaves that take no gradient and no optimizer update: the encoder
+# positional table, frozen as in the reference (stop_gradient)
+FROZEN = (("whisper", "encoder", "pos"),)
+
+
+def leaves_with_path(tree: Any, path: tuple = ()) -> list:
+    """[(path, tensor)] in tree order; a path holds dict keys and list
+    indices, e.g. ("whisper", "decoder", "blocks", 0, "fc1", "w")."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in leaves_with_path(v, path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in leaves_with_path(v, path + (i,))]
+    return [(path, tree)]
+
+
+def trainable_leaves(tree: Any, frozen=FROZEN) -> list:
+    """[(path, tensor)] of every leaf except the frozen ones."""
+    frozen = {tuple(f) for f in frozen}
+    return [(p, t) for p, t in leaves_with_path(tree) if p not in frozen]
+
+
+def set_trainable(tree: Any, frozen=FROZEN) -> Any:
+    """Marks every leaf of `tree` requires_grad, except the frozen ones,
+    in place; returns the tree."""
+    frozen = {tuple(f) for f in frozen}
+    for p, t in leaves_with_path(tree):
+        t.requires_grad_(p not in frozen)
+    return tree
 
 
 # ---------------------------------------------------------------------------

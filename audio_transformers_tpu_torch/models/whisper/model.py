@@ -1,16 +1,22 @@
 """Whisper encoder-decoder (whisper-tiny class) on PyTorch tensors.
 
 The functions of the reference (`audio_transformers_tpu/models/whisper/
-model.py`) for the serving path, over the port's parameter trees
-(`core.params`):
+model.py`) for the serving and training paths, over the port's parameter
+trees (`core.params`):
 
   encoder: conv1d(n_mels->D,k3,p1) GELU -> conv1d(D->D,k3,s2,p1) GELU
-           -> +positions -> N pre-LN blocks -> LN
+           -> +positions (frozen) -> N pre-LN blocks -> LN
+  decoder (teacher-forced, `apply_decoder`): tok embed + learned positions
+           -> N pre-LN blocks (causal self-attention, cross-attention,
+           MLP) -> LN; `logits_from_hidden` is the tied projection
   decoder step: tok embed + learned position -> N pre-LN blocks (causal
            self-attention over the KV cache, cross-attention over the
            precomputed encoder K/V, MLP) -> LN
 
-Self and cross K/V keep the reference's time-minor (B, H, hd, T) layout.
+The full-sequence passes take attn_impl "xla" (matmul + float32 softmax)
+or "flash" (the flash-attention kernels, `ops/attention.py`). In the
+decode step, self and cross K/V keep the reference's time-minor
+(B, H, hd, T) layout.
 Cross-attention runs through the hand-written kernel
 `ops.decode_attention.decode_cross_attention` (its plain version on the
 CPU); self-attention over the short cache stays plain PyTorch, as it
@@ -35,23 +41,81 @@ from audio_transformers_tpu_torch.ops.decode_attention import \
 Tensor = torch.Tensor
 
 
-def _self_block(p: dict, x: Tensor, heads: int) -> Tensor:
+def _self_block(p: dict, x: Tensor, heads: int, impl: str) -> Tensor:
     h = nn.layer_norm(p["self_ln"], x)
-    x = x + nn.multihead_attention(p["self_attn"], h, h, num_heads=heads)
+    x = x + nn.multihead_attention(p["self_attn"], h, h, num_heads=heads,
+                                   impl=impl)
     h = nn.layer_norm(p["mlp_ln"], x)
     return x + nn.linear(p["fc2"], nn.gelu(nn.linear(p["fc1"], h)))
 
 
-def encode(params: dict, cfg: WhisperConfig, mel: Tensor) -> Tensor:
+def _refuse_remat(remat: bool) -> None:
+    if remat:
+        raise NotImplementedError(
+            "remat (activation checkpointing) is not ported yet")
+
+
+def encode(params: dict, cfg: WhisperConfig, mel: Tensor, *,
+           remat: bool = False, attn_impl: str = "xla") -> Tensor:
     """mel (B, T_mel, n_mels) -> encoder states (B, T_mel // 2, d_model),
-    in mel's dtype. Attention is matmul + float32 softmax."""
+    in mel's dtype.
+
+    attn_impl: "xla" (matmul + float32 softmax), "flash" (the flash
+    attention kernels, forward and backward) or "auto", which is "xla"
+    here as in the reference; the trainer resolves its own "auto". The
+    positional table is frozen, as in the reference (stop_gradient): it
+    takes no gradient."""
+    _refuse_remat(remat)
+    if attn_impl == "auto":
+        attn_impl = "xla"
     p = params["encoder"]
     x = nn.gelu(nn.conv1d(p["conv1"], mel, padding=1))
     x = nn.gelu(nn.conv1d(p["conv2"], x, stride=2, padding=1))
-    x = x + p["pos"][None, : x.shape[1], :].to(x.dtype)
+    x = x + p["pos"].detach()[None, : x.shape[1], :].to(x.dtype)
     for bp in p["blocks"]:
-        x = _self_block(bp, x, cfg.num_heads)
+        x = _self_block(bp, x, cfg.num_heads, attn_impl)
     return nn.layer_norm(p["ln"], x)
+
+
+def _cross_block(p: dict, x: Tensor, enc: Tensor, heads: int,
+                 impl: str) -> Tensor:
+    h = nn.layer_norm(p["self_ln"], x)
+    x = x + nn.multihead_attention(p["self_attn"], h, h, num_heads=heads,
+                                   causal=True, impl=impl)
+    h = nn.layer_norm(p["cross_ln"], x)
+    x = x + nn.multihead_attention(p["cross_attn"], h, enc, num_heads=heads,
+                                   impl=impl)
+    h = nn.layer_norm(p["mlp_ln"], x)
+    return x + nn.linear(p["fc2"], nn.gelu(nn.linear(p["fc1"], h)))
+
+
+def apply_decoder(params: dict, cfg: WhisperConfig, enc: Tensor,
+                  tokens: Tensor, *, remat: bool = False,
+                  attn_impl: str = "xla") -> Tensor:
+    """Teacher-forced decoder pass: tokens (B, T) -> last hidden states
+    (B, T, d_model) in enc's dtype. Causal self-attention with no padding
+    mask, non-causal cross-attention, as in the reference. Embedding plus
+    positions are summed in the parameters' dtype, then cast. "auto" is
+    "xla", as in `encode`."""
+    _refuse_remat(remat)
+    if attn_impl == "auto":
+        attn_impl = "xla"
+    p = params["decoder"]
+    x = nn.embedding_lookup(p["embed"], tokens)
+    x = (x + p["pos"][None, : tokens.shape[1], :]).to(enc.dtype)
+    for bp in p["blocks"]:
+        x = _cross_block(bp, x, enc, cfg.num_heads, attn_impl)
+    return nn.layer_norm(p["ln"], x)
+
+
+def logits_from_hidden(params: dict, hidden: Tensor) -> Tensor:
+    """Tied output projection: hidden (B, T, D) @ embed^T -> (B, T, vocab)
+    float32. Both operands are rounded to hidden's dtype and multiplied in
+    float32, so bfloat16 operands give float32 logits, as the reference's
+    preferred_element_type=f32 does (exact products; on the GPU this
+    relies on PyTorch's default of no TF32 for float32 matmuls)."""
+    table = params["decoder"]["embed"]["table"].to(hidden.dtype)
+    return torch.matmul(hidden.float(), table.float().t())
 
 
 def init_cache(cfg: WhisperConfig, batch: int, *,

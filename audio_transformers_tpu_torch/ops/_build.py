@@ -35,7 +35,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNEL_SOURCES = ("decode_attention", "decode_logits", "mel")
+KERNEL_SOURCES = ("decode_attention", "decode_logits", "mel",
+                  "flash_attention")
 
 
 @dataclass
@@ -48,6 +49,9 @@ STATS: Dict[str, KernelStats] = {
     "decode_cross_attention": KernelStats(),
     "fused_greedy_step": KernelStats(),
     "log_mel": KernelStats(),
+    "flash_attention_fwd": KernelStats(),
+    "flash_attention_bwd_dq": KernelStats(),
+    "flash_attention_bwd_dkv": KernelStats(),
 }
 
 
@@ -90,15 +94,23 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def _compile(name: str, out: Path) -> None:
+def _start_compile(name: str, out: Path):
+    """Starts nvcc for csrc/<name>.cu; `_finish_compile` waits for it."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return name, out, tmp, proc
+
+
+def _finish_compile(job) -> None:
+    name, out, tmp, proc = job
+    _, err = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{err}")
     os.replace(tmp, out)
 
 
@@ -109,13 +121,27 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             path = library_path(name)
             if not path.exists():
-                _compile(name, path)
+                _finish_compile(_start_compile(name, path))
             lib = ctypes.CDLL(str(path))
             _libs[name] = lib
         return lib
 
 
 def build_all() -> None:
+    """Compiles every missing library, one nvcc per source, all started
+    together, then loads them all."""
+    with _lock:
+        jobs = [_start_compile(name, library_path(name))
+                for name in KERNEL_SOURCES
+                if name not in _libs and not library_path(name).exists()]
+        try:
+            for job in jobs:
+                _finish_compile(job)
+        finally:
+            for job in jobs:
+                if job[3].poll() is None:
+                    job[3].kill()
+                    job[3].wait()
     for name in KERNEL_SOURCES:
         load(name)
 

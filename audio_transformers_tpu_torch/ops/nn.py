@@ -65,12 +65,23 @@ def sinusoidal_embeddings(length: int, dim: int,
     return emb
 
 
+def causal_mask(t: int, device=None) -> Tensor:
+    """(1, 1, t, t) True on and below the diagonal."""
+    return torch.ones((t, t), dtype=torch.bool,
+                      device=device).tril()[None, None]
+
+
 def multihead_attention(params: dict, q_in: Tensor, kv_in: Tensor, *,
-                        num_heads: int,
-                        mask: Optional[Tensor] = None) -> Tensor:
-    """Self- or cross-attention, q_in (B, Tq, D), kv_in (B, Tk, D), as
-    matmul + float32 softmax (the reference's XLA formulation). `mask`
-    (broadcastable to (B, H, Tq, Tk), True = keep)."""
+                        num_heads: int, mask: Optional[Tensor] = None,
+                        impl: str = "xla", causal: bool = False) -> Tensor:
+    """Self- or cross-attention, q_in (B, Tq, D), kv_in (B, Tk, D).
+
+    impl="xla" is matmul + float32 softmax (the reference's XLA
+    formulation), with `mask` (broadcastable to (B, H, Tq, Tk), True =
+    keep) or `causal`. impl="flash" projects straight to the head-major
+    (B, H, T, hd) layout and runs the flash-attention kernels
+    (`ops.attention.flash_attention`, forward and backward); it takes no
+    mask beyond `causal`."""
     b, tq, d = q_in.shape
     hd = d // num_heads
 
@@ -79,6 +90,19 @@ def multihead_attention(params: dict, q_in: Tensor, kv_in: Tensor, *,
 
     q, k, v = (heads(params["q"], q_in), heads(params["k"], kv_in),
                heads(params["v"], kv_in))
+    if impl == "flash":
+        if mask is not None:
+            raise NotImplementedError(
+                "flash path supports only causal masking; pass impl='xla' "
+                "for arbitrary masks")
+        from audio_transformers_tpu_torch.ops.attention import \
+            flash_attention
+        out = flash_attention(q, k, v, causal=causal)     # (B, H, Tq, hd)
+        return linear(params["o"], out.transpose(1, 2).reshape(b, tq, d))
+    if impl != "xla":
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if causal and mask is None:
+        mask = causal_mask(tq, q_in.device)
     # float32 logits, as the reference's preferred_element_type=f32
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
         / math.sqrt(hd)

@@ -7,19 +7,33 @@ Needs one CUDA device, nvcc, and the repository around this file. Phases,
 each raising on failure:
 
   1. the card: name and power limit (nvidia-smi);
-  2. build the three hand-written CUDA kernels from csrc/ (nvcc, sm_90a);
-  3. each kernel against its plain PyTorch version on the card at the
-     serving path's shapes (B in {4, 16}, T=1500, V=51865 padded to
+  2. build the hand-written CUDA kernels from csrc/ (nvcc, sm_90a), one
+     nvcc per source, all started together;
+  3. each serving kernel against its plain PyTorch version on the card at
+     the serving path's shapes (B in {4, 16}, T=1500, V=51865 padded to
      52224, 30 s audio), with the tolerances below, and their times
      (CUDA events, median of 20 after warm-up);
   4. correctness on a small input: the port's pipeline at the test config
      in float32 on the card (kernels) equals the same pipeline on the CPU
      (plain versions);
-  5. the main path: EmotionWhisperPipeline.analyze of a 12 s clip at the
+  5. the serving path: EmotionWhisperPipeline.analyze of a 12 s clip at the
      full width of whisper-tiny (seeded random weights, bfloat16), with
      every kernel's launch counter reset just before and read just after;
   6. the HTTP server on 127.0.0.1 with the micro-batcher, answering three
-     concurrent /analyze requests.
+     concurrent /analyze requests;
+  7. the flash-attention kernels K4a/b/c against their plain versions at
+     the training shapes of whisper-tiny at batch 16 (B*H = 96, d = 64:
+     encoder self-attention 1500 x 1500, decoder causal self-attention
+     31 x 31, cross-attention 31 x 1500), float32 and bfloat16, and their
+     times in bfloat16;
+  8. correctness of one train step on a small input: the test config in
+     float32, kernels on the card against plain versions on the CPU;
+  9. the training path: the train_whisper CLI on whisper-tiny (bfloat16,
+     synthetic 30 s clips, batch 8, 10 train steps and one eval), with
+     every launch counter reset just before and read just after;
+  10. a fixed batch overfit for 20 constant-lr steps: the loss falls;
+  11. steady-state train-step time at batch 16, flash kernels against the
+     plain attention, in turns.
 
 Tolerances (kernel vs plain version, on the card):
   K1 decode_cross_attention: 1e-5 abs in float32 (sum order only);
@@ -29,6 +43,16 @@ Tolerances (kernel vs plain version, on the card):
      1e-3; rows below that gap are reported, not compared.
   K3 log_mel: 2e-4 abs on the final features (f32 sums in another order,
      then log10).
+  K4a/b/c flash attention fwd, dq, dk/dv: in float32, max|err| <= 2e-5 *
+     max(1, max|plain|) (sum order only); in bfloat16, within two bf16
+     ulps at the tensor's largest magnitude (the output is rounded to
+     bf16, and the kernel rounds p against its running maximum where the
+     plain version takes the final one).
+  One train step, card vs CPU (test config, float32): losses within 1e-4
+     relative; gradients within 1e-3 * max(1, max|cpu|) per leaf (log-mel
+     features differ by up to 2e-4); updated parameters within 2 * lr + 1e-6
+     (the first Adam update is +-lr per element, so an element whose tiny
+     gradient flips sign under sum-order noise moves 2 * lr apart).
 
 The next-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Nothing of JAX is imported.
@@ -51,16 +75,29 @@ import wave
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 K1_TOL_F32, K1_TOL_BF16, K2_GAP, K3_TOL = 1e-5, 2e-2, 1e-3, 2e-4
+K4_TOL_F32, K4_ULPS_BF16 = 2e-5, 2
 REPLACES = {
     "decode_cross_attention": "audio_transformers_tpu/ops/decode_attention.py:100",
     "fused_greedy_step": "audio_transformers_tpu/ops/decode_logits.py:82",
     "log_mel": "audio_transformers_tpu/ops/mel_pallas.py:67",
+    "flash_attention_fwd": "audio_transformers_tpu/ops/attention.py:42",
+    "flash_attention_bwd_dq": "audio_transformers_tpu/ops/attention.py:147",
+    "flash_attention_bwd_dkv": "audio_transformers_tpu/ops/attention.py:187",
 }
 SOURCES = {
     "decode_cross_attention": "audio_transformers_tpu_torch/csrc/decode_attention.cu",
     "fused_greedy_step": "audio_transformers_tpu_torch/csrc/decode_logits.cu",
     "log_mel": "audio_transformers_tpu_torch/csrc/mel.cu",
+    "flash_attention_fwd": "audio_transformers_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_dq": "audio_transformers_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_dkv": "audio_transformers_tpu_torch/csrc/flash_attention.cu",
 }
+SERVING = ("decode_cross_attention", "fused_greedy_step", "log_mel")
+TRAINING = ("log_mel", "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")
+# training shapes at whisper-tiny width and batch 16: (name, Tq, Tk, causal)
+K4_SHAPES = (("encoder", 1500, 1500, False), ("decoder", 31, 31, True),
+             ("cross", 31, 1500, False))
 
 
 def synth_clip(duration, sr, *, freq=440.0, noise=0.05, seed=0):
@@ -348,6 +385,242 @@ def check_server(pipe, synth_clip):
         f"{wall:.3f} s; micro-batcher stats {batcher.stats}")
 
 
+# ---------------------------------------------------------------------------
+# phases 7-11: the training path
+# ---------------------------------------------------------------------------
+
+
+def _k4_err(got, want, dtype):
+    """(max abs error, limit) of a K4 output against its plain version."""
+    import torch
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if dtype == torch.float32:
+        return err, K4_TOL_F32 * max(1.0, scale)
+    return err, K4_ULPS_BF16 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def check_k4(torch, att, gen, times):
+    """K4a/b/c against their plain versions; returns the worst bf16 error
+    of each."""
+    worst = {n: 0.0 for n in ("flash_attention_fwd",
+                              "flash_attention_bwd_dq",
+                              "flash_attention_bwd_dkv")}
+    bh, d = 16 * 6, 64
+    for name, tq, tk, causal in K4_SHAPES:
+        q32 = torch.randn((bh, tq, d), generator=gen, device="cuda") / 8.0
+        k32 = torch.randn((bh, tk, d), generator=gen, device="cuda")
+        v32 = torch.randn((bh, tk, d), generator=gen, device="cuda")
+        g32 = torch.randn((bh, tq, d), generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, g = (x.to(dtype) for x in (q32, k32, v32, g32))
+            out, lse = att.flash_attention_fwd(q, k, v, causal)
+            p_out, p_lse = att.flash_attention_fwd_reference(q, k, v, causal)
+            # both backward versions run from the plain forward's residuals
+            delta = (g.float() * p_out.float()).sum(-1)
+            bwd = (q, k, v, g, p_lse, delta, causal)
+            dq = att.flash_attention_bwd_dq(*bwd)
+            dk, dv = att.flash_attention_bwd_dkv(*bwd)
+            p_dq = att.flash_attention_bwd_dq_reference(*bwd)
+            p_dk, p_dv = att.flash_attention_bwd_dkv_reference(*bwd)
+            torch.cuda.synchronize()
+            lse_err = (lse - p_lse).abs().max().item()
+            require(lse_err <= 1e-4, f"K4a {name} lse: {lse_err}")
+            for kern, got, want in (("flash_attention_fwd", out, p_out),
+                                    ("flash_attention_bwd_dq", dq, p_dq),
+                                    ("flash_attention_bwd_dkv", dk, p_dk),
+                                    ("flash_attention_bwd_dkv", dv, p_dv)):
+                err, tol = _k4_err(got, want, dtype)
+                require(got.dtype == dtype and got.shape == want.shape,
+                        f"{kern} {name}: dtype/shape")
+                require(err <= tol, f"{kern} {name} {dtype}: {err} > {tol}")
+                if dtype == torch.bfloat16:
+                    worst[kern] = max(worst[kern], err)
+            log(f"K4 {name} {str(dtype)[6:]:8s} max_abs_err out "
+                f"{_k4_err(out, p_out, dtype)[0]:.3e} lse {lse_err:.3e} "
+                f"dq {_k4_err(dq, p_dq, dtype)[0]:.3e} "
+                f"dk {_k4_err(dk, p_dk, dtype)[0]:.3e} "
+                f"dv {_k4_err(dv, p_dv, dtype)[0]:.3e}")
+        # the training path's operands: bf16
+        t = {"flash_attention_fwd": (
+                time_ms(lambda: att.flash_attention_fwd(q, k, v, causal)),
+                time_ms(lambda: att.flash_attention_fwd_reference(
+                    q, k, v, causal))),
+             "flash_attention_bwd_dq": (
+                time_ms(lambda: att.flash_attention_bwd_dq(*bwd)),
+                time_ms(lambda: att.flash_attention_bwd_dq_reference(*bwd))),
+             "flash_attention_bwd_dkv": (
+                time_ms(lambda: att.flash_attention_bwd_dkv(*bwd)),
+                time_ms(lambda: att.flash_attention_bwd_dkv_reference(
+                    *bwd)))}
+        log(f"K4 {name} bf16 time (kernel / plain ms): " + ", ".join(
+            f"{n[16:]} {a:.4f} / {b:.4f}" for n, (a, b) in t.items()))
+        times[name] = t
+    return worst
+
+
+def train_batch(b, duration, w, n_classes, seed, max_len=32):
+    """A host batch in the trainer's schema: sine-plus-noise clips, label
+    rows [start, tokens..., eos, pad...] of max_len ids drawn from the
+    config's vocab, one emotion class per clip."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    labels = np.full((b, max_len), w.pad_token_id, np.int32)
+    for i in range(b):
+        n = int(rng.integers(3, max_len - 2))
+        seq = [w.decoder_start_token_id,
+               *rng.integers(10, w.vocab_size, n).tolist(), w.eos_token_id]
+        labels[i, :len(seq)] = seq
+    wav = np.stack([synth_clip(duration, 16000, freq=150.0 * (i % 7 + 1),
+                               seed=seed + i) for i in range(b)])
+    return {"waveform": wav, "labels": labels,
+            "emotion_labels": (np.arange(b) % n_classes).astype(np.int32),
+            "valid": np.ones(b, bool)}
+
+
+def _fresh(torch, params, device):
+    from audio_transformers_tpu_torch.core import params as cp
+    return cp.set_trainable(cp.map_tensors(
+        params, lambda t: t.detach().to(device, torch.float32).clone()))
+
+
+def check_small_train_step(torch, port, init):
+    """One train step at the test config in float32: card vs CPU."""
+    from audio_transformers_tpu_torch.core import params as cp
+    from audio_transformers_tpu_torch.train import whisper_emotion as tw
+    from audio_transformers_tpu_torch.train.optim import build_optimizer
+    cfg = port.EmotionWhisperConfig(whisper=port.WhisperConfig.test(),
+                                    num_emotion_classes=4)
+    w, lr = cfg.whisper, 1e-4
+    tcfg = port.TrainConfig(batch_size=4, compute_dtype="float32",
+                            attn_impl="flash",
+                            optimizer=port.OptimizerConfig(
+                                name="adamw", learning_rate=lr,
+                                weight_decay=0.01))
+    dur = 2 * w.max_source_positions * 160 / 16000
+    batch = train_batch(4, dur, w, 4, seed=5, max_len=12)
+    params0 = init(cfg, torch.Generator().manual_seed(3))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = _fresh(torch, params0, dev)
+        opt = build_optimizer(tcfg.optimizer, params)
+        step, _ = tw.make_steps(cfg, port.MelConfig.whisper(), tcfg, opt, dev)
+        metrics = step(params, tw.batch_to_device(batch, dev))
+        runs[dev] = ({k: v.item() for k, v in metrics.items()},
+                     dict(cp.leaves_with_path(params)))
+    (gm, gp), (cm, cparams) = runs["cuda"], runs["cpu"]
+    for k in ("loss", "transcription_loss", "emotion_loss"):
+        require(abs(gm[k] - cm[k]) <= 1e-4 * abs(cm[k]),
+                f"train step {k}: card {gm[k]} vs CPU {cm[k]}")
+    g_err = p_err = 0.0
+    for path, t in gp.items():
+        c = cparams[path]
+        p_err = max(p_err, (t.detach().cpu() - c.detach()).abs().max().item())
+        if c.grad is not None:
+            e = (t.grad.cpu() - c.grad).abs().max().item()
+            require(e <= 1e-3 * max(1.0, c.grad.abs().max().item()),
+                    f"train step grad {path}: {e}")
+            g_err = max(g_err, e)
+    require(p_err <= 2 * lr + 1e-6, f"train step params differ by {p_err}")
+    log(f"small train step (test config, f32, flash): loss card "
+        f"{gm['loss']:.6f} vs CPU {cm['loss']:.6f}; grads max_abs_err "
+        f"{g_err:.3e}; updated params max_abs_err {p_err:.3e} "
+        f"(bound {2 * lr + 1e-6:.1e})")
+
+
+def check_train_cli(torch, _build):
+    """The training path at whisper-tiny width through the CLI."""
+    import tempfile
+
+    from audio_transformers_tpu_torch.cli import train_whisper
+    with tempfile.TemporaryDirectory() as out_dir:
+        args = ["--dataset", "synthetic", "--model_size", "tiny",
+                "--compute_dtype", "bfloat16", "--batch_size", "8",
+                "--num_samples", "100", "--num_epochs", "1",
+                "--num_workers", "4", "--device", "cuda",
+                "--output_dir", out_dir]
+        torch.cuda.synchronize()
+        _build.reset_stats()
+        t0 = time.perf_counter()
+        out = train_whisper.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = {name: (s.launches, s.plain_cuda_calls)
+                 for name, s in _build.STATS.items()}
+        require(os.path.exists(os.path.join(out_dir, "metrics.jsonl")),
+                "metrics.jsonl written")
+    log(f"train_whisper (whisper-tiny, bf16, 30 s clips, batch 8, "
+        f"{out['optimizer'].count} steps + eval): {wall:.3f} s; "
+        f"launches / plain-on-CUDA calls: {stats}")
+    require(out["optimizer"].count == 10, "ten train steps")
+    for name in TRAINING:
+        require(stats[name][0] > 0,
+                f"{name} was not launched on the training path")
+    for name, (_, plain) in stats.items():
+        require(plain == 0, f"{name}'s plain version ran on CUDA")
+    for row in out["history"]:
+        for key, val in row.items():
+            if "loss" in key:
+                require(math.isfinite(val), f"{key} = {val}")
+    log(f"train_whisper history: {json.dumps(out['history'])}")
+    return {name: stats[name][0] for name in TRAINING}
+
+
+def _tiny_steps(torch, port, params0, attn, lr, batch_size):
+    from audio_transformers_tpu_torch.train import whisper_emotion as tw
+    from audio_transformers_tpu_torch.train.optim import build_optimizer
+    cfg = port.EmotionWhisperConfig(num_emotion_classes=9)
+    tcfg = port.TrainConfig(batch_size=batch_size, compute_dtype="bfloat16",
+                            attn_impl=attn,
+                            optimizer=port.OptimizerConfig(
+                                name="adamw", learning_rate=lr))
+    params = _fresh(torch, params0, "cuda")
+    opt = build_optimizer(tcfg.optimizer, params)
+    step, _ = tw.make_steps(cfg, port.MelConfig.whisper(), tcfg, opt, "cuda")
+    return lambda batch: step(params, batch)
+
+
+def check_overfit(torch, port, params0):
+    from audio_transformers_tpu_torch.train.whisper_emotion import \
+        batch_to_device
+    w = port.WhisperConfig()
+    batch = batch_to_device(train_batch(4, 30.0, w, 9, seed=11), "cuda")
+    step = _tiny_steps(torch, port, params0, "flash", 5e-4, 4)
+    losses = [step(batch)["loss"].item() for _ in range(20)]
+    require(all(math.isfinite(x) for x in losses), "finite overfit losses")
+    log(f"overfit (whisper-tiny, bf16, flash, one batch of 4, 20 steps at "
+        f"lr 5e-4): loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    require(losses[-1] < losses[0], "the overfit loss did not fall")
+    return losses[0], losses[-1]
+
+
+def time_train_step(torch, port, params0):
+    """Steady-state train-step ms at batch 16: plain attention vs flash
+    kernels, in turns (plain, flash, flash, plain)."""
+    from audio_transformers_tpu_torch.train.whisper_emotion import \
+        batch_to_device
+    w = port.WhisperConfig()
+    batch = batch_to_device(train_batch(16, 30.0, w, 9, seed=13), "cuda")
+    runs = {}
+    for attn in ("xla", "flash", "flash", "xla"):
+        step = _tiny_steps(torch, port, params0, attn, 3e-5, 16)
+        for _ in range(2):
+            step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(batch)
+        torch.cuda.synchronize()
+        runs.setdefault(attn, []).append(
+            (time.perf_counter() - t0) / 5 * 1e3)
+        del step
+        torch.cuda.empty_cache()
+    log(f"train step (whisper-tiny, bf16, batch 16, 30 s clips), ms per "
+        f"step over 5 steps, two turns each: plain attention "
+        f"{runs['xla']}, flash kernels {runs['flash']}")
+    return {k: statistics.mean(v) for k, v in runs.items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -366,6 +639,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    from audio_transformers_tpu_torch import core as port_core
     from audio_transformers_tpu_torch.core import (EmotionWhisperConfig,
                                                    MelConfig, WhisperConfig)
     from audio_transformers_tpu_torch.core.params import init
@@ -373,6 +647,7 @@ def main() -> int:
         EmotionWhisperPipeline
     from audio_transformers_tpu_torch.models.whisper import decode
     from audio_transformers_tpu_torch.ops import _build
+    from audio_transformers_tpu_torch.ops import attention as att
     from audio_transformers_tpu_torch.ops import decode_attention as da
     from audio_transformers_tpu_torch.ops import decode_logits as dl
     from audio_transformers_tpu_torch.ops import logit_processors as lp
@@ -414,7 +689,7 @@ def main() -> int:
     check_small_reference(torch, EmotionWhisperConfig, WhisperConfig, init,
                           EmotionWhisperPipeline, synth_clip, ByteTokenizer)
 
-    # 5. the main path at whisper-tiny width
+    # 5. the serving path at whisper-tiny width
     params = init(cfg, torch.Generator().manual_seed(0))
     pipe = EmotionWhisperPipeline(params, cfg, device="cuda",
                                   compute_dtype=torch.bfloat16)
@@ -431,8 +706,10 @@ def main() -> int:
         f"launches / plain-on-CUDA calls: {stats}")
     check_result(out, 3, cfg.num_emotion_classes)
     for name, (launches, plain) in stats.items():
-        require(launches > 0, f"{name} was not launched on the main path")
         require(plain == 0, f"{name}'s plain version ran on CUDA")
+    for name in SERVING:
+        require(stats[name][0] > 0,
+                f"{name} was not launched on the serving path")
     t0 = time.perf_counter()
     pipe.analyze(clip, 16000)
     torch.cuda.synchronize()
@@ -440,17 +717,48 @@ def main() -> int:
 
     # 6. the HTTP server
     check_server(pipe, synth_clip)
+    del pipe
+    torch.cuda.empty_cache()
+
+    # 7. K4 against its plain versions at the training shapes
+    k4_times = {}
+    err.update(check_k4(torch, att, gen, k4_times))
+
+    # 8. one train step at the test config: card vs CPU
+    check_small_train_step(torch, port_core, init)
+
+    # 9. the training path at whisper-tiny width, through the CLI
+    train_launches = check_train_cli(torch, _build)
+
+    # 10-11. overfit on one batch; steady-state step time, flash vs plain
+    params = init(EmotionWhisperConfig(num_emotion_classes=9),
+                  torch.Generator().manual_seed(0))
+    check_overfit(torch, port_core, params)
+    step_ms = time_train_step(torch, port_core, params)
+    log(f"train step mean ms (batch 16): plain attention "
+        f"{step_ms['xla']:.3f}, flash kernels {step_ms['flash']:.3f}")
 
     kernels = []
-    for name in _build.STATS:
+    for name in SERVING:
         ms, plain = times[4][name]
         ms16, plain16 = times[16][name]
+        entry = {"name": name, "route": "cuda", "source": SOURCES[name],
+                 "replaces": REPLACES[name], "launches": stats[name][0],
+                 "max_abs_err": err[name], "ms": ms, "plain_ms": plain,
+                 "ms_b16": ms16, "plain_ms_b16": plain16}
+        if name in train_launches:
+            entry["launches_training"] = train_launches[name]
+        kernels.append(entry)
+    for name in TRAINING[1:]:
+        ms, plain = k4_times["encoder"][name]
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],
-                        "launches": stats[name][0],
-                        "max_abs_err": err[name], "ms": ms,
-                        "plain_ms": plain, "ms_b16": ms16,
-                        "plain_ms_b16": plain16})
+                        "launches": train_launches[name],
+                        "max_abs_err": err[name], "ms": ms, "plain_ms": plain,
+                        **{f"{k}_ms": k4_times[k][name][0]
+                           for k in ("decoder", "cross")},
+                        **{f"{k}_plain_ms": k4_times[k][name][1]
+                           for k in ("decoder", "cross")}})
     log(f"K2 rows below the top-2 gap {K2_GAP} (not compared): {below}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

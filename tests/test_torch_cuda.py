@@ -11,7 +11,13 @@ Tolerances, each against the plain version on the same card:
   K2 fused_greedy_step: tokens equal on rows whose plain top-2 gap
      exceeds 1e-3
   K3 log_mel: 2e-4 abs on the final features (f32 sum order, log10)
+  K4a/b/c flash attention: float32 max|err| <= 2e-5 * max(1, max|plain|)
+     (sum order only); bfloat16 within two bf16 ulps at the tensor's
+     largest magnitude (bf16 output rounding, p rounded against the
+     kernel's running maximum)
 """
+
+import math
 
 import pytest
 import torch
@@ -23,6 +29,7 @@ from audio_transformers_tpu_torch.core import params as cp
 from audio_transformers_tpu_torch.models.whisper import decode as dec
 from audio_transformers_tpu_torch.models.whisper import model as wm
 from audio_transformers_tpu_torch.ops import _build
+from audio_transformers_tpu_torch.ops import attention as att
 from audio_transformers_tpu_torch.ops import decode_attention as da
 from audio_transformers_tpu_torch.ops import decode_logits as dl
 from audio_transformers_tpu_torch.ops import logit_processors as lp
@@ -221,3 +228,114 @@ def test_generate_on_cuda_matches_cpu(cuda):
     assert torch.equal(gpu["tokens"].cpu(), cpu["tokens"])
     assert torch.equal(gpu["lengths"].cpu(), cpu["lengths"])
     assert (gpu["hiddens"].cpu() - cpu["hiddens"]).abs().max() <= 1e-4
+
+
+# --------------------------------------------------------------------------
+# K4: flash attention
+# --------------------------------------------------------------------------
+
+
+def _k4_ok(got, want, dtype):
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if dtype == torch.float32:
+        return err <= 2e-5 * max(1.0, scale)
+    return err <= 2 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+@pytest.mark.parametrize("bh,tq,tk,d,causal", [
+    (3, 100, 130, 32, False), (4, 70, 70, 64, True), (2, 65, 200, 128, False),
+    (96, 31, 31, 64, True), (96, 31, 1500, 64, False),
+    (12, 1500, 1500, 64, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_matches_plain(cuda, bh, tq, tk, d, causal, dtype):
+    g = _gen(4)
+    q = (torch.randn((bh, tq, d), generator=g, device=cuda)
+         / math.sqrt(d)).to(dtype)
+    k, v = (torch.randn((bh, tk, d), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    do = torch.randn((bh, tq, d), generator=g, device=cuda).to(dtype)
+    before = {n: _build.STATS[n].launches for n in _build.STATS}
+    out, lse = att.flash_attention_fwd(q, k, v, causal)
+    p_out, p_lse = att.flash_attention_fwd_reference(q, k, v, causal)
+    delta = (do.float() * p_out.float()).sum(-1)
+    args = (q, k, v, do, p_lse, delta, causal)
+    dq = att.flash_attention_bwd_dq(*args)
+    dk, dv = att.flash_attention_bwd_dkv(*args)
+    p_dq = att.flash_attention_bwd_dq_reference(*args)
+    p_dk, p_dv = att.flash_attention_bwd_dkv_reference(*args)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert _build.STATS[name].launches == before[name] + 1
+    assert (lse - p_lse).abs().max().item() <= 1e-4
+    for got, want in ((out, p_out), (dq, p_dq), (dk, p_dk), (dv, p_dv)):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert _k4_ok(got, want, dtype)
+
+
+def test_k4_autograd_on_cuda_matches_cpu(cuda):
+    g = torch.Generator().manual_seed(5)
+    q, k, v, do = (torch.randn((2, 3, 90, 64), generator=g)
+                   for _ in range(4))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        xs = [x.to(dev).requires_grad_() for x in (q, k, v)]
+        out = att.flash_attention(*xs, causal=True)
+        out.backward(do.to(dev))
+        grads.append([out] + [x.grad for x in xs])
+    for a, b in zip(*grads):
+        assert (a.detach().cpu() - b.detach()).abs().max().item() <= 1e-5
+
+
+def test_k4_rejects_bad_operands(cuda):
+    x = torch.zeros((2, 8, 64), device=cuda)
+    with pytest.raises(ValueError):                     # d > 128
+        att.flash_attention_fwd(*(torch.zeros((2, 8, 160), device=cuda),)
+                                * 3, False)
+    with pytest.raises(TypeError):                      # float16
+        att.flash_attention_fwd(x.half(), x.half(), x.half(), False)
+    with pytest.raises(ValueError):                     # not contiguous
+        xt = torch.zeros((2, 64, 8), device=cuda).transpose(1, 2)
+        att.flash_attention_fwd(xt, x, x, False)
+
+
+# --------------------------------------------------------------------------
+# a train step at whisper-tiny width
+# --------------------------------------------------------------------------
+
+
+def test_full_width_train_step_launches_the_kernels(cuda):
+    import numpy as np
+
+    from audio_transformers_tpu.core.config import (OptimizerConfig,
+                                                    TrainConfig)
+    from audio_transformers_tpu_torch.train import whisper_emotion as tw
+    from audio_transformers_tpu_torch.train.optim import build_optimizer
+
+    cfg = EmotionWhisperConfig(num_emotion_classes=9)
+    w = cfg.whisper
+    tcfg = TrainConfig(batch_size=2, compute_dtype="bfloat16",
+                       optimizer=OptimizerConfig(learning_rate=1e-4))
+    params = cp.set_trainable(cp.to_device(
+        cp.init(cfg, torch.Generator().manual_seed(0)), cuda))
+    opt = build_optimizer(tcfg.optimizer, params)
+    step, _ = tw.make_steps(cfg, MelConfig.whisper(), tcfg, opt, cuda)
+    rng = np.random.default_rng(0)
+    labels = rng.integers(10, w.vocab_size, (2, 32)).astype(np.int32)
+    labels[:, 0] = w.decoder_start_token_id
+    batch = {"waveform": (0.1 * rng.standard_normal((2, 480000))
+                          ).astype(np.float32),
+             "labels": labels, "emotion_labels": np.array([1, 5], np.int32),
+             "valid": np.ones(2, bool)}
+    _build.reset_stats()
+    losses = [step(params, tw.batch_to_device(batch, cuda))["loss"].item()
+              for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(math.isfinite(x) for x in losses)
+    assert losses[-1] < losses[0]
+    for name in ("log_mel", "flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert _build.STATS[name].launches > 0
+    assert all(s.plain_cuda_calls == 0 for s in _build.STATS.values())
+    assert params["whisper"]["encoder"]["pos"].grad is None
