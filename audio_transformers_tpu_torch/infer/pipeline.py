@@ -4,10 +4,10 @@ The port of `audio_transformers_tpu/infer/pipeline.EmotionWhisperPipeline`
 with the same surface (`analyze_windows`, `transcribe`, `analyze`) and the
 same batching: model windows are stacked into power-of-two buckets capped
 at `max_batch`, each bucket goes through log-mel -> encoder -> greedy
-decode (repetition penalty 1.15, no-repeat 3-gram) -> emotion head on the
-decode's hidden states. Loading from orbax checkpoints or HF directories
-is not ported yet; build the pipeline from bridged or seeded parameters
-(`core.params`).
+decode, or beam search with `num_beams` > 1 (repetition penalty 1.15,
+no-repeat 3-gram) -> emotion head on the decode's hidden states. Loading
+from orbax checkpoints or HF directories is not ported yet; build the
+pipeline from bridged or seeded parameters (`core.params`).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from audio_transformers_tpu.core.config import (DecodeConfig,
                                                 MelConfig)
 from audio_transformers_tpu.utils.audio import resample, to_mono
 from audio_transformers_tpu_torch.core.params import init, to_device
+from audio_transformers_tpu_torch.models.whisper import beam as wbeam
 from audio_transformers_tpu_torch.models.whisper import decode as wdecode
 from audio_transformers_tpu_torch.models.whisper import emotion as emo
 from audio_transformers_tpu_torch.models.whisper import model as wm
@@ -38,14 +39,16 @@ DEFAULT_EMOTION_LABELS = [
 class EmotionWhisperPipeline:
     """params: the port's {"whisper", "emotion_head"} tree (moved to
     `device` here). compute_dtype: the activation dtype of the encoder and
-    decoder (bfloat16 on the GPU; the CPU tests use float32)."""
+    decoder (bfloat16 on the GPU; the CPU tests use float32). num_beams > 1
+    decodes by beam search (`models/whisper/beam.py`)."""
 
     def __init__(self, params: dict, cfg: EmotionWhisperConfig,
                  mel_cfg: Optional[MelConfig] = None,
                  idx_to_label: Optional[Dict[int, str]] = None,
                  tokenizer=None, *, device="cpu",
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 suppress_ids=None, kv_quant: str = "none"):
+                 suppress_ids=None, kv_quant: str = "none",
+                 num_beams: int = 1):
         self.device = torch.device(device)
         self.params = to_device(params, self.device)
         self.cfg = cfg
@@ -55,6 +58,7 @@ class EmotionWhisperPipeline:
         self.tokenizer = tokenizer
         self.compute_dtype = compute_dtype
         self.kv_quant = kv_quant
+        self.num_beams = num_beams
         self.suppress_ids = tuple(
             suppress_ids if suppress_ids is not None
             else wdecode.default_suppress_ids(cfg.whisper))
@@ -75,9 +79,16 @@ class EmotionWhisperPipeline:
         wav = torch.from_numpy(np.ascontiguousarray(windows)).to(self.device)
         mel = log_mel(wav, self.mel_cfg).to(self.compute_dtype)
         enc = wm.encode(self.params["whisper"], w, mel)
-        out = wdecode.generate_with_fallback(
-            self.params["whisper"], w, dcfg, enc, prompt=prompt,
-            suppress_ids=self.suppress_ids, tokenizer=self.tokenizer)
+        if dcfg.num_beams > 1:
+            # deterministic, so the compression-ratio fallback (a rescue of
+            # degenerate greedy output) does not apply, as in the reference
+            out = wbeam.generate_beam(self.params["whisper"], w, dcfg, enc,
+                                      prompt=prompt,
+                                      suppress_ids=self.suppress_ids)
+        else:
+            out = wdecode.generate_with_fallback(
+                self.params["whisper"], w, dcfg, enc, prompt=prompt,
+                suppress_ids=self.suppress_ids, tokenizer=self.tokenizer)
         logits = emo.sequence_emotion_from_hiddens(self.params,
                                                    out["hiddens"])
         out["probs"] = torch.softmax(logits, dim=-1)
@@ -98,7 +109,7 @@ class EmotionWhisperPipeline:
         n = windows.shape[0]
         dcfg = DecodeConfig(max_new_tokens=max_new_tokens,
                             repetition_penalty=1.15, no_repeat_ngram_size=3,
-                            kv_quant=self.kv_quant)
+                            kv_quant=self.kv_quant, num_beams=self.num_beams)
         bucket = 1
         while bucket < min(n, max_batch):
             bucket *= 2

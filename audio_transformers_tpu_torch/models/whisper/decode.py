@@ -77,7 +77,8 @@ def _check_supported(dcfg: DecodeConfig) -> None:
     if dcfg.return_timestamps:
         raise NotImplementedError("timestamped decoding is not ported yet")
     if dcfg.num_beams > 1:
-        raise NotImplementedError("beam search is not ported yet")
+        raise NotImplementedError("num_beams > 1 decodes through "
+                                  "beam.generate_beam, not generate")
 
 
 @torch.no_grad()

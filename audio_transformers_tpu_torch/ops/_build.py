@@ -36,7 +36,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 KERNEL_SOURCES = ("decode_attention", "decode_logits", "mel",
-                  "flash_attention")
+                  "flash_attention", "permute")
 
 
 @dataclass
@@ -52,6 +52,7 @@ STATS: Dict[str, KernelStats] = {
     "flash_attention_fwd": KernelStats(),
     "flash_attention_bwd_dq": KernelStats(),
     "flash_attention_bwd_dkv": KernelStats(),
+    "permute_rows": KernelStats(),
 }
 
 

@@ -31,10 +31,12 @@ __all__ = ["MicroBatcher", "build_pipeline", "main", "make_handler", "serve"]
 
 
 def build_pipeline(*, config: str = "tiny", params_path=None,
-                   kv_quant: str = "none") -> EmotionWhisperPipeline:
+                   kv_quant: str = "none",
+                   num_beams: int = 1) -> EmotionWhisperPipeline:
     """The port's pipeline from a saved parameter tree (its emotion head
     gives the class count) or from a seeded init with 10 classes: on the
-    GPU in bfloat16 when there is one, else on the CPU in float32."""
+    GPU in bfloat16 when there is one, else on the CPU in float32.
+    num_beams > 1 serves beam-search decoding."""
     cuda = torch.cuda.is_available()
     if params_path:
         params = torch.load(params_path, map_location="cpu")
@@ -48,7 +50,7 @@ def build_pipeline(*, config: str = "tiny", params_path=None,
     return EmotionWhisperPipeline(
         params, cfg, device="cuda" if cuda else "cpu",
         compute_dtype=torch.bfloat16 if cuda else torch.float32,
-        kv_quant=kv_quant)
+        kv_quant=kv_quant, num_beams=num_beams)
 
 
 def main(argv=None):

@@ -33,7 +33,27 @@ each raising on failure:
      every launch counter reset just before and read just after;
   10. a fixed batch overfit for 20 constant-lr steps: the loss falls;
   11. steady-state train-step time at batch 16, flash kernels against the
-     plain attention, in turns.
+     plain attention, in turns;
+  12. the beam reorder K5 against its plain version on the card, on the
+     whisper-tiny beam step's own buffers at L=66 (8 self K/V of
+     (rows, 6, 64, 66) in bf16, or in int8 with 8 f32 scales of
+     (rows, 6, 66); the (rows, 52224) int8 seen mask; (rows, 66) int64
+     tokens) at rows = 64 (B=16 x N=4) and 512 (B=128 x N=4), with
+     repeated parents, and their times per call (CUDA events, median of 20
+     after warm-up), as for the other kernels, and the device time of the
+     kernels alone (torch.profiler);
+  13. correctness on a small input: a beam pipeline (num_beams=3) at the
+     test config in float32 on the card equals the same pipeline on the
+     CPU;
+  14. the beam serving path: EmotionWhisperPipeline(num_beams=4).analyze of
+     a 12 s clip at whisper-tiny width (seeded weights, bfloat16), with
+     kv_quant "none" and "int8", launch counters reset around each;
+  15. the HTTP server with that beam pipeline, three concurrent requests;
+  16. beam decode ms per step at B=16 and B=128 (N=4, seeded random
+     encoder states), the K5 reorder against its plain version (one
+     index_select per buffer, patched in for the plain turns), in five
+     turns each: the time of a 64-token decode less that of a 16-token
+     one, over 48.
 
 Tolerances (kernel vs plain version, on the card):
   K1 decode_cross_attention: 1e-5 abs in float32 (sum order only);
@@ -48,6 +68,7 @@ Tolerances (kernel vs plain version, on the card):
      ulps at the tensor's largest magnitude (the output is rounded to
      bf16, and the kernel rounds p against its running maximum where the
      plain version takes the final one).
+  K5 permute_rows: bit for bit (a pure copy).
   One train step, card vs CPU (test config, float32): losses within 1e-4
      relative; gradients within 1e-3 * max(1, max|cpu|) per leaf (log-mel
      features differ by up to 2e-4); updated parameters within 2 * lr + 1e-6
@@ -83,6 +104,7 @@ REPLACES = {
     "flash_attention_fwd": "audio_transformers_tpu/ops/attention.py:42",
     "flash_attention_bwd_dq": "audio_transformers_tpu/ops/attention.py:147",
     "flash_attention_bwd_dkv": "audio_transformers_tpu/ops/attention.py:187",
+    "permute_rows": "audio_transformers_tpu/ops/permute.py:45",
 }
 SOURCES = {
     "decode_cross_attention": "audio_transformers_tpu_torch/csrc/decode_attention.cu",
@@ -91,10 +113,13 @@ SOURCES = {
     "flash_attention_fwd": "audio_transformers_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_dq": "audio_transformers_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_dkv": "audio_transformers_tpu_torch/csrc/flash_attention.cu",
+    "permute_rows": "audio_transformers_tpu_torch/csrc/permute.cu",
 }
 SERVING = ("decode_cross_attention", "fused_greedy_step", "log_mel")
 TRAINING = ("log_mel", "flash_attention_fwd", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkv")
+BEAM = ("permute_rows", "log_mel")
+N_BEAMS = 4
 # training shapes at whisper-tiny width and batch 16: (name, Tq, Tk, causal)
 K4_SHAPES = (("encoder", 1500, 1500, False), ("decoder", 31, 31, True),
              ("cross", 31, 1500, False))
@@ -143,6 +168,24 @@ def time_ms(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps=20):
+    """Device time of one fn() in ms: the summed time of the kernels it
+    launched, from torch.profiler over `reps` calls after a warm-up. Unlike
+    time_ms, it leaves out the host time of a call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    require(kernels, "the profiler recorded no kernel")
+    return sum(e.time_range.elapsed_us() for e in kernels) / reps / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -621,6 +664,188 @@ def time_train_step(torch, port, params0):
     return {k: statistics.mean(v) for k, v in runs.items()}
 
 
+# ---------------------------------------------------------------------------
+# phases 12-16: beam search
+# ---------------------------------------------------------------------------
+
+
+def _k5_bufs(torch, rows, mode, gen):
+    """The whisper-tiny beam step's per-beam buffers at L=66: 8 self K/V
+    (4 layers x k, v), in int8 mode with 8 f32 scales, then the int8 seen
+    mask at the padded vocab width and the int64 token rows."""
+    dev, length = "cuda", 66
+    kv = [torch.randn((rows, 6, 64, length), generator=gen, device=dev)
+          for _ in range(8)]
+    if mode == "bf16":
+        bufs = [x.bfloat16() for x in kv]
+    else:
+        bufs = [x.mul(40).clamp(-127, 127).to(torch.int8) for x in kv]
+        bufs += [torch.rand((rows, 6, length), generator=gen, device=dev)
+                 for _ in range(8)]
+    bufs.append((torch.rand((rows, 52224), generator=gen, device=dev) < 0.01
+                 ).to(torch.int8))
+    bufs.append(torch.randint(0, 51865, (rows, length), generator=gen,
+                              device=dev))
+    return bufs
+
+
+def check_k5(torch, pm, gen):
+    """K5 against its plain version, bit for bit, and both times, at the
+    beam path's row counts; returns {(rows, mode): (ms per call, plain ms
+    per call, device ms, plain device ms)}. A call's time (time_ms, as for
+    K1-K4) includes the wrapper's host work where the card waits for it;
+    the device times are the kernels' own (the plain version's 10 or 18
+    index_select kernels summed)."""
+    times = {}
+    for rows in (N_BEAMS * 16, N_BEAMS * 128):
+        for mode in ("bf16", "int8"):
+            bufs = _k5_bufs(torch, rows, mode, gen)
+            # beam-structured parents: each row's parent is a beam of its
+            # own batch row, so parents repeat
+            perm = ((torch.arange(rows, device="cuda") // N_BEAMS) * N_BEAMS
+                    + torch.randint(0, N_BEAMS, (rows,), generator=gen,
+                                    device="cuda"))
+            got = pm.permute_rows(bufs, perm)
+            want = pm.permute_rows_reference(bufs, perm)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                require(a.dtype == b.dtype and torch.equal(a, b),
+                        f"K5 {mode} rows={rows}: not bit exact")
+            out, out_plain = got, want
+
+            def kernel():
+                pm.permute_rows(bufs, perm, out=out)
+
+            def plain():
+                pm.permute_rows_reference(bufs, perm, out=out_plain)
+            t = (time_ms(kernel), time_ms(plain), device_ms(kernel),
+                 device_ms(plain))
+            moved = 2 * sum(a.nbytes for a in bufs)
+            log(f"K5 rows={rows} {mode}: {len(bufs)} buffers, bit exact; "
+                f"per call kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms; device "
+                f"time kernel {t[2]:.4f} ms ({moved / t[2] / 1e6:.1f} GB/s "
+                f"of {moved / 1e6:.1f} MB read + written), plain "
+                f"{t[3]:.4f} ms")
+            times[(rows, mode)] = t
+            del bufs, got, want, out, out_plain
+    return times
+
+
+def check_small_beam(torch, EmotionWhisperConfig, WhisperConfig, init,
+                     Pipeline):
+    cfg = EmotionWhisperConfig(whisper=WhisperConfig.test(),
+                               num_emotion_classes=4)
+    params = init(cfg, torch.Generator().manual_seed(1))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        pipe = Pipeline(params, cfg, tokenizer=ByteTokenizer(), device=dev,
+                        compute_dtype=torch.float32, num_beams=3)
+        outs.append(pipe.analyze(synth_clip(3.0, 16000, seed=2), 16000,
+                                 segment_duration=1.0))
+    gpu, cpu = outs
+    check_result(gpu, 3, 4)
+    require(gpu["transcription"] == cpu["transcription"],
+            "test-config beam transcription: card vs CPU")
+    err = 0.0
+    for g, c in zip(gpu["segments"], cpu["segments"]):
+        require(g["text"] == c["text"], "test-config beam segment text")
+        err = max(err, max(abs(g["emotion_probs"][k] - c["emotion_probs"][k])
+                           for k in c["emotion_probs"]))
+    log(f"small beam reference (num_beams=3): texts equal, probs "
+        f"max_abs_err={err:.3e} (tol 1e-4)")
+    require(err <= 1e-4, f"test-config beam probabilities differ by {err}")
+
+
+def check_beam_serving(torch, _build, Pipeline, params, cfg, clip):
+    """analyze through beam search at whisper-tiny width, kv_quant none and
+    int8; returns ({mode: launch stats}, the "none" pipeline)."""
+    runs, pipes = {}, {}
+    for mode in ("none", "int8"):
+        pipe = Pipeline(params, cfg, device="cuda",
+                        compute_dtype=torch.bfloat16, kv_quant=mode,
+                        num_beams=N_BEAMS)
+        torch.cuda.synchronize()
+        _build.reset_stats()
+        t0 = time.perf_counter()
+        out = pipe.analyze(clip, 16000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = {name: (s.launches, s.plain_cuda_calls)
+                 for name, s in _build.STATS.items()}
+        log(f"beam analyze (num_beams={N_BEAMS}, kv_quant={mode}, "
+            f"whisper-tiny, bf16, 12 s clip, first call): {wall:.3f} s; "
+            f"launches / plain-on-CUDA calls: {stats}")
+        check_result(out, 3, cfg.num_emotion_classes)
+        for name, (_, plain) in stats.items():
+            require(plain == 0, f"{name}'s plain version ran on CUDA "
+                                f"(beam, {mode})")
+        for name in BEAM:
+            require(stats[name][0] > 0,
+                    f"{name} was not launched on the beam path ({mode})")
+        log(f"beam analyze ({mode}): K1 decode_cross_attention launches "
+            f"{stats['decode_cross_attention'][0]}, K2 fused_greedy_step "
+            f"launches {stats['fused_greedy_step'][0]} (the beam path "
+            f"calls neither)")
+        t0 = time.perf_counter()
+        pipe.analyze(clip, 16000)
+        torch.cuda.synchronize()
+        log(f"beam analyze ({mode}, same clip, second call): "
+            f"{time.perf_counter() - t0:.3f} s")
+        runs[mode], pipes[mode] = stats, pipe
+    del pipes["int8"]
+    return runs, pipes["none"]
+
+
+def time_beam_steps(torch, beam, pm, cfg, params):
+    """Beam decode ms per step at N=4, B in {16, 128}: the K5 reorder
+    ("k5") against its plain version ("plain", one index_select per
+    buffer, patched into the beam module for its turns), five turns each
+    in the order plain, k5, k5, plain, ... (ABBA); each turn times a
+    64-token and a 16-token decode of the same seeded encoder states, and
+    the step time is their difference over 48. Returns the median turn of
+    each."""
+    from audio_transformers_tpu_torch.core import DecodeConfig
+    from audio_transformers_tpu_torch.core.params import to_device
+    w = cfg.whisper
+    p = to_device(params["whisper"], "cuda")
+    reorders = {"k5": beam.permute_rows, "plain": pm.permute_rows_reference}
+    result = {}
+    for b in (16, 128):
+        enc = torch.randn((b, w.max_source_positions, w.d_model),
+                          generator=torch.Generator().manual_seed(b)
+                          ).to("cuda", torch.bfloat16)
+
+        def decode(impl, new):
+            dcfg = DecodeConfig(max_new_tokens=new, num_beams=N_BEAMS,
+                                repetition_penalty=1.15,
+                                no_repeat_ngram_size=3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            beam.permute_rows = reorders[impl]
+            try:
+                out = beam.generate_beam(p, w, dcfg, enc)
+            finally:
+                beam.permute_rows = reorders["k5"]
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, out
+
+        toks = {impl: decode(impl, 64)[1]["tokens"] for impl in reorders}
+        require(torch.equal(toks["k5"], toks["plain"]),
+                f"beam B={b}: K5 and plain reorders give other tokens")
+        turns = {"k5": [], "plain": []}
+        for impl in ("plain", "k5", "k5", "plain") * 2 + ("plain", "k5"):
+            t64, _ = decode(impl, 64)
+            t16, _ = decode(impl, 16)
+            turns[impl].append((t64 - t16) / 48 * 1e3)
+        log(f"beam decode B={b} N={N_BEAMS} (L=66, whisper-tiny, bf16): ms "
+            f"per step, five turns each: K5 reorder {turns['k5']}, plain "
+            f"index_select {turns['plain']}")
+        result[b] = {k: statistics.median(v) for k, v in turns.items()}
+        del enc
+        torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -645,13 +870,14 @@ def main() -> int:
     from audio_transformers_tpu_torch.core.params import init
     from audio_transformers_tpu_torch.infer.pipeline import \
         EmotionWhisperPipeline
-    from audio_transformers_tpu_torch.models.whisper import decode
+    from audio_transformers_tpu_torch.models.whisper import beam, decode
     from audio_transformers_tpu_torch.ops import _build
     from audio_transformers_tpu_torch.ops import attention as att
     from audio_transformers_tpu_torch.ops import decode_attention as da
     from audio_transformers_tpu_torch.ops import decode_logits as dl
     from audio_transformers_tpu_torch.ops import logit_processors as lp
     from audio_transformers_tpu_torch.ops import mel
+    from audio_transformers_tpu_torch.ops import permute as pm
 
     # the plain versions are the oracle: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -737,6 +963,30 @@ def main() -> int:
     step_ms = time_train_step(torch, port_core, params)
     log(f"train step mean ms (batch 16): plain attention "
         f"{step_ms['xla']:.3f}, flash kernels {step_ms['flash']:.3f}")
+    del params
+    torch.cuda.empty_cache()
+
+    # 12. K5 against its plain version at the beam step's buffers
+    k5_times = check_k5(torch, pm, gen)
+    err["permute_rows"] = 0.0
+
+    # 13. a beam pipeline at the test config: card vs CPU
+    check_small_beam(torch, EmotionWhisperConfig, WhisperConfig, init,
+                     EmotionWhisperPipeline)
+
+    # 14. the beam serving path at whisper-tiny width, kv_quant none, int8
+    params = init(cfg, torch.Generator().manual_seed(0))
+    beam_runs, pipe = check_beam_serving(torch, _build,
+                                         EmotionWhisperPipeline, params, cfg,
+                                         clip)
+
+    # 15. the HTTP server with the beam pipeline
+    check_server(pipe, synth_clip)
+    del pipe
+    torch.cuda.empty_cache()
+
+    # 16. beam decode ms per step, K5 against the plain reorder
+    beam_ms = time_beam_steps(torch, beam, pm, cfg, params)
 
     kernels = []
     for name in SERVING:
@@ -759,6 +1009,22 @@ def main() -> int:
                            for k in ("decoder", "cross")},
                         **{f"{k}_plain_ms": k4_times[k][name][1]
                            for k in ("decoder", "cross")}})
+    kernels.append({
+        "name": "permute_rows", "route": "cuda",
+        "source": SOURCES["permute_rows"],
+        "replaces": REPLACES["permute_rows"],
+        "launches": beam_runs["none"]["permute_rows"][0],
+        "launches_int8": beam_runs["int8"]["permute_rows"][0],
+        "max_abs_err": err["permute_rows"],
+        "ms": k5_times[(64, "bf16")][0], "plain_ms": k5_times[(64, "bf16")][1],
+        **{f"{key}_{rows}{'' if mode == 'bf16' else '_int8'}": k5_times[
+            (rows, mode)][i]
+           for rows in (64, 512) for mode in ("bf16", "int8")
+           for i, key in enumerate(("ms", "plain_ms", "device_ms",
+                                    "plain_device_ms"))},
+        "beam_step_ms": {str(b): v["k5"] for b, v in beam_ms.items()},
+        "beam_step_plain_ms": {str(b): v["plain"]
+                               for b, v in beam_ms.items()}})
     log(f"K2 rows below the top-2 gap {K2_GAP} (not compared): {below}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

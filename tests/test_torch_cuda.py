@@ -15,6 +15,7 @@ Tolerances, each against the plain version on the same card:
      (sum order only); bfloat16 within two bf16 ulps at the tensor's
      largest magnitude (bf16 output rounding, p rounded against the
      kernel's running maximum)
+  K5 permute_rows: bit for bit (a pure copy)
 """
 
 import math
@@ -34,6 +35,7 @@ from audio_transformers_tpu_torch.ops import decode_attention as da
 from audio_transformers_tpu_torch.ops import decode_logits as dl
 from audio_transformers_tpu_torch.ops import logit_processors as lp
 from audio_transformers_tpu_torch.ops import mel
+from audio_transformers_tpu_torch.ops import permute as pm
 
 pytestmark = pytest.mark.cuda
 
@@ -339,3 +341,100 @@ def test_full_width_train_step_launches_the_kernels(cuda):
         assert _build.STATS[name].launches > 0
     assert all(s.plain_cuda_calls == 0 for s in _build.STATS.values())
     assert params["whisper"]["encoder"]["pos"].grad is None
+
+
+# --------------------------------------------------------------------------
+# K5: the beam reorder
+# --------------------------------------------------------------------------
+
+
+def _k5_bufs(cuda, rows, g):
+    """The whisper-tiny beam step's buffers at L=66 (bf16 and int8 K/V, f32
+    scales, the int8 seen mask, int64 tokens), plus 37-byte bool rows and
+    an odd f32 row that take the kernel's byte path."""
+    kv = torch.randn((rows, 6, 64, 66), generator=g, device=cuda)
+    return [kv.bfloat16(), kv.mul(40).to(torch.int8),
+            torch.rand((rows, 6, 66), generator=g, device=cuda),
+            (torch.rand((rows, 52224), generator=g, device=cuda) < 0.01
+             ).to(torch.int8),
+            torch.randint(0, 51865, (rows, 66), generator=g, device=cuda),
+            torch.rand((rows, 37), generator=g, device=cuda) < 0.5,
+            torch.randn((rows, 3, 5), generator=g, device=cuda)]
+
+
+@pytest.mark.parametrize("rows", [64, 512])
+def test_k5_matches_plain(cuda, rows):
+    g = _gen(6)
+    bufs = _k5_bufs(cuda, rows, g)
+    perm = torch.randint(0, rows // 2, (rows,), generator=g, device=cuda)
+    before = _build.STATS["permute_rows"].launches
+    got = pm.permute_rows(bufs, perm)
+    assert _build.STATS["permute_rows"].launches == before + 1
+    want = pm.permute_rows_reference(bufs, perm)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+def test_k5_into_outputs_and_misaligned_views(cuda):
+    # a 16-byte-misaligned source and destination (offset by 3 bytes) take
+    # the byte head/body/tail split; odd offsets that differ take bytes
+    g = _gen(7)
+    raw = torch.randint(-128, 127, (64 * 1000 + 3,), generator=g,
+                        device=cuda, dtype=torch.int16).to(torch.int8)
+    src = raw[3:3 + 64 * 1000].view(64, 1000)
+    dst_raw = torch.zeros(64 * 1000 + 16, dtype=torch.int8, device=cuda)
+    for off in (3, 5):
+        dst = dst_raw[off:off + 64 * 1000].view(64, 1000)
+        perm = torch.randint(0, 64, (64,), generator=g, device=cuda)
+        pm.permute_rows([src], perm, out=[dst])
+        torch.cuda.synchronize()
+        assert torch.equal(dst, src[perm])
+
+
+def test_k5_splits_long_lists(cuda):
+    g = _gen(8)
+    bufs = [torch.randn((16, 4), generator=g, device=cuda)
+            for _ in range(pm.MAX_ENTRIES + 3)]
+    perm = torch.randint(0, 16, (16,), generator=g, device=cuda)
+    before = _build.STATS["permute_rows"].launches
+    got = pm.permute_rows(bufs, perm)
+    assert _build.STATS["permute_rows"].launches == before + 2
+    for a, b in zip(got, bufs):
+        assert torch.equal(a, b[perm])
+
+
+def test_k5_rejects_bad_operands(cuda):
+    x = torch.zeros((8, 4), device=cuda)
+    perm = torch.arange(8, device=cuda)
+    with pytest.raises(ValueError, match="overlaps"):
+        pm.permute_rows([x], perm, out=[x])
+    with pytest.raises(ValueError):
+        pm.permute_rows([x.cpu()], perm)
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_beam_on_cuda_matches_cpu(cuda, kv_quant):
+    from audio_transformers_tpu_torch.models.whisper import beam
+    cfg = EmotionWhisperConfig(whisper=WhisperConfig.test(),
+                               num_emotion_classes=4)
+    w = cfg.whisper
+    params = cp.init(cfg, torch.Generator().manual_seed(0))["whisper"]
+    mel_in = torch.randn((3, 2 * w.max_source_positions, w.n_mels),
+                         generator=torch.Generator().manual_seed(1))
+    dcfg = DecodeConfig(max_new_tokens=20, num_beams=3, kv_quant=kv_quant,
+                        repetition_penalty=1.15, no_repeat_ngram_size=3)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        p = cp.to_device(params, dev)
+        enc = wm.encode(p, w, mel_in.to(dev))
+        before = _build.STATS["permute_rows"].launches
+        outs.append(beam.generate_beam(p, w, dcfg, enc))
+        launched = _build.STATS["permute_rows"].launches - before
+        assert (launched > 0) == (dev.type == "cuda")
+    gpu, cpu = outs
+    for k in ("tokens", "lengths", "beam_tokens", "beam_lengths"):
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+    assert (gpu["beam_scores"].cpu() - cpu["beam_scores"]).abs().max() <= 1e-4
+    assert (gpu["hiddens"].cpu() - cpu["hiddens"]).abs().max() <= 1e-4

@@ -75,13 +75,20 @@ def test_precompute_cross_matches_jax(pair, quant):
                                            atol=1e-5, rtol=0)
 
 
-def test_int4_and_int8_self_cache_wait(pair):
+def test_int4_waits_and_int8_self_cache_matches_jax(pair):
     _, tp, _, enc_j = pair
     with pytest.raises(NotImplementedError):
         wm.precompute_cross_attention(tp["whisper"], W,
                                       torch.from_numpy(enc_j), quant="int4")
-    with pytest.raises(NotImplementedError):
-        wm.init_cache(W, 2, quant="int8")
+    want = jwm.init_cache(W, 2, max_len=9, quant="int8")
+    got = wm.init_cache(W, 2, max_len=9, quant="int8")
+    assert sorted(got) == sorted(want) and got["index"] == 0
+    for name in ("k", "v", "k_scale", "v_scale"):
+        assert len(got[name]) == len(want[name]) == W.decoder_layers
+        for g, w in zip(got[name], want[name]):
+            assert tuple(g.shape) == w.shape
+            assert str(g.dtype).split(".")[-1] == str(w.dtype)
+            np.testing.assert_array_equal(_np(g), np.asarray(w))
 
 
 def test_decoder_steps_match_jax(pair):
@@ -160,6 +167,18 @@ def test_generate_matches_jax_fused_kernels(pair):
     # greedy-step kernels (interpreted), whose arithmetic the port's
     # kernels share (q and p never quantized)
     dcfg = PIPE_DCFG.replace(max_new_tokens=10, kv_quant="int8")
+    got, want = _generate_both(
+        pair, dcfg, jax_dcfg=dcfg.replace(step_attn="fused",
+                                          logits_impl="fused"))
+    _assert_decode_equal(got, want)
+
+
+def test_generate_int8_self_cache_matches_jax(pair):
+    # self_kv_min=0 quantizes the self cache at this short budget too (the
+    # default 192 gates it to long decodes); JAX runs its interpreted
+    # kernels for the int8 cross K/V, as above
+    dcfg = PIPE_DCFG.replace(max_new_tokens=10, kv_quant="int8",
+                             self_kv_min=0)
     got, want = _generate_both(
         pair, dcfg, jax_dcfg=dcfg.replace(step_attn="fused",
                                           logits_impl="fused"))
