@@ -1,0 +1,44 @@
+"""Shared CLI plumbing: dataset construction from flags (the port's copy
+of the reference package's `cli/common.py`, the parts the training CLI
+reaches)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from audio_transformers_tpu_torch.data.tokenizer import (ByteTokenizer,
+                                                         load_tokenizer)
+
+
+def build_expresso_splits(args, tokenizer, *, duration: float = 3.0,
+                          vocab_size: Optional[int] = None):
+    """(train, val, test, style_to_idx) from --dataset flags.
+
+    --dataset expresso needs network access to the HF hub; rather than
+    silently substituting different training data, an unreachable hub is
+    surfaced as a clear error pointing at --dataset synthetic."""
+    from audio_transformers_tpu_torch.data.expresso import (
+        SIMPLE_STYLES, SyntheticExpresso, create_dataset)
+
+    selected = SIMPLE_STYLES if getattr(args, "simple_styles", False) else None
+    if args.dataset == "expresso":
+        try:
+            return create_dataset(tokenizer, selected_styles=selected,
+                                  data_percentage=args.data_percentage,
+                                  seed=args.seed)
+        except (ConnectionError, OSError) as e:
+            raise SystemExit(
+                f"--dataset expresso: HF hub load failed ({e}). If this "
+                "machine has no network access, use --dataset synthetic "
+                "(the schema-faithful offline stand-in).") from e
+    ds = SyntheticExpresso(tokenizer,
+                           num_samples=getattr(args, "num_samples", 64),
+                           styles=selected, duration=duration,
+                           vocab_size=vocab_size, seed=args.seed)
+    return ds.splits(seed=args.seed)
+
+
+def get_tokenizer(name_or_path: Optional[str]):
+    if name_or_path in (None, "", "byte"):
+        return ByteTokenizer()
+    return load_tokenizer(name_or_path)

@@ -63,13 +63,11 @@ def main(argv=None):
             "--hf_repo_id is not ported yet (hub export needs the torch "
             "checkpoint bundle, ROADMAP queue items 4 and 9)")
 
-    from audio_transformers_tpu.cli.common import (build_expresso_splits,
-                                                   get_tokenizer)
-    from audio_transformers_tpu.core.config import (EmotionWhisperConfig,
-                                                    MelConfig,
-                                                    OptimizerConfig,
-                                                    TrainConfig,
-                                                    WhisperConfig)
+    from audio_transformers_tpu_torch.cli.common import (
+        build_expresso_splits, get_tokenizer)
+    from audio_transformers_tpu_torch.core.config import (
+        EmotionWhisperConfig, MelConfig, OptimizerConfig, TrainConfig,
+        WhisperConfig)
     from audio_transformers_tpu_torch.train.whisper_emotion import \
         train_whisper_emotion
 

@@ -1,7 +1,7 @@
-"""Configs (the reference package's JAX-free dataclasses, re-exported) and
-the port's parameter trees (params.py)."""
+"""Configs (config.py, the port's copy of the reference package's
+dataclasses) and the port's parameter trees (params.py)."""
 
-from audio_transformers_tpu.core.config import (  # noqa: F401
+from audio_transformers_tpu_torch.core.config import (  # noqa: F401
     DecodeConfig,
     EmotionWhisperConfig,
     MelConfig,

@@ -2,20 +2,69 @@
 
 The reference's `StepTimer` (`audio_transformers_tpu/core/metrics.py`)
 syncs through `core.profiling.sync`, which imports JAX; this one syncs
-with `torch.cuda.synchronize()`. The metric logger is the reference's own
-`MetricLogger`, which is JAX-free.
+with `torch.cuda.synchronize()`. `MetricLogger` is the port's copy of the
+reference's (console, JSONL on disk, wandb when configured).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from typing import Optional
 
 import torch
 
-from audio_transformers_tpu.core.metrics import MetricLogger
-
 __all__ = ["MetricLogger", "StepTimer"]
+
+
+class MetricLogger:
+    def __init__(self, log_dir: Optional[str] = None,
+                 wandb_project: Optional[str] = None,
+                 wandb_entity: Optional[str] = None,
+                 config: Optional[dict] = None,
+                 console: bool = True):
+        self.console = console
+        self._file = None
+        self._wandb = None
+        self._t0 = time.time()
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+            self._file = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+        if wandb_project and os.environ.get("WANDB_KEY"):
+            try:
+                import wandb
+                wandb.login(key=os.environ["WANDB_KEY"])
+                self._wandb = wandb.init(project=wandb_project,
+                                         entity=wandb_entity, config=config)
+            except Exception as e:  # offline or wandb missing: JSONL only
+                print(f"[metrics] wandb unavailable ({e}); using JSONL sink")
+
+    def log(self, metrics: dict, step: Optional[int] = None):
+        payload = {k: (float(v) if hasattr(v, "item") or
+                       isinstance(v, (int, float)) else v)
+                   for k, v in metrics.items()}
+        if step is not None:
+            payload["step"] = step
+        payload["wall_time"] = round(time.time() - self._t0, 3)
+        if self._file:
+            self._file.write(json.dumps(payload) + "\n")
+            self._file.flush()
+        if self._wandb:
+            self._wandb.log(payload, step=step)
+        if self.console:
+            body = ", ".join(f"{k}={v:.5g}" if isinstance(v, float) else
+                             f"{k}={v}" for k, v in payload.items()
+                             if k != "wall_time")
+            print(f"[metrics] {body}")
+
+    def finish(self):
+        if self._file:
+            self._file.close()
+            self._file = None
+        if self._wandb:
+            self._wandb.finish()
+            self._wandb = None
 
 
 class StepTimer:

@@ -26,8 +26,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from audio_transformers_tpu.core.config import (EmotionWhisperConfig,
-                                                WhisperConfig)
+from audio_transformers_tpu_torch.core.config import (EmotionWhisperConfig,
+                                                      WhisperConfig)
 from audio_transformers_tpu_torch.ops.nn import sinusoidal_embeddings
 
 
@@ -82,6 +82,23 @@ def map_tensors(tree: Any, fn) -> Any:
 
 def to_device(tree: Any, device) -> Any:
     return map_tensors(tree, lambda t: t.to(device))
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; raises when CUDA is asked for and
+    absent, so that no entry point quietly runs on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} was asked for, but no "
+                           "CUDA device is present (pass device='cpu' to "
+                           "run on the CPU)")
+    return device
+
+
+def compute_dtype_for(device: torch.device) -> torch.dtype:
+    """The activation dtype of a device the caller chose: bfloat16 on the
+    card, float32 on the CPU."""
+    return torch.bfloat16 if device.type == "cuda" else torch.float32
 
 
 # leaves that take no gradient and no optimizer update: the encoder

@@ -6,6 +6,9 @@
 //   flash_attention_bwd_dq   <- _bwd_dq_kernel    p = exp(s - lse),
 //                               ds = p * (dO v^T - delta), dq = ds k
 //   flash_attention_bwd_dkv  <- _bwd_dkv_kernel   dv = p^T dO, dk = ds^T q
+// The forward takes float32 and bfloat16. The backward here is the
+// float32 route (its 2e-5 parity); bfloat16's runs on the tensor cores in
+// flash_attention_bwd_sm90.cu.
 //
 // Layout: q (BH, Tq, d), k and v (BH, Tk, d), dO like q, all row-major in
 // one storage dtype (float32 or bfloat16); lse and delta (BH, Tq) float32.
@@ -29,8 +32,8 @@
 // become exact float32 values, so a product is exact and only the sum
 // order differs from the TPU's f32-accumulating matmuls. The reference's
 // roundings are kept: p is rounded to the storage dtype before P.V and
-// before dv, ds before dq and dk. Tensor-core products (mma.sync, then
-// wgmma with TMA) are the next step.
+// before dv, ds before dq and dk. The bf16 backward has moved to the
+// tensor cores (flash_attention_bwd_sm90.cu); the forward's turn is next.
 
 #include "common.cuh"
 
@@ -455,20 +458,25 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // The head dimension d (<= 128) picks the padded tile width DP in
-// {32, 64, 128}; dtype is kF32 or kBF16.
-#define FLASH_DISPATCH(FN, ...)                                        \
+// {32, 64, 128} for the storage type T.
+#define FLASH_DISPATCH_T(T, FN, ...)                                   \
   do {                                                                 \
     if (d < 1 || d > 128) return (int)cudaErrorInvalidValue;           \
-    if (dtype == kF32) {                                               \
-      if (d <= 32) return FN<float, 32>(__VA_ARGS__);                  \
-      if (d <= 64) return FN<float, 64>(__VA_ARGS__);                  \
-      return FN<float, 128>(__VA_ARGS__);                              \
-    }                                                                  \
-    if (dtype == kBF16) {                                              \
-      if (d <= 32) return FN<__nv_bfloat16, 32>(__VA_ARGS__);          \
-      if (d <= 64) return FN<__nv_bfloat16, 64>(__VA_ARGS__);          \
-      return FN<__nv_bfloat16, 128>(__VA_ARGS__);                      \
-    }                                                                  \
+    if (d <= 32) return FN<T, 32>(__VA_ARGS__);                        \
+    if (d <= 64) return FN<T, 64>(__VA_ARGS__);                        \
+    return FN<T, 128>(__VA_ARGS__);                                    \
+  } while (0)
+
+// dtype is kF32 or kBF16 (the forward); the backward takes kF32 only.
+#define FLASH_DISPATCH(FN, ...)                                        \
+  do {                                                                 \
+    if (dtype == kF32) FLASH_DISPATCH_T(float, FN, __VA_ARGS__);       \
+    if (dtype == kBF16) FLASH_DISPATCH_T(__nv_bfloat16, FN, __VA_ARGS__); \
+    return (int)cudaErrorInvalidValue;                                 \
+  } while (0)
+#define FLASH_DISPATCH_F32(FN, ...)                                    \
+  do {                                                                 \
+    if (dtype == kF32) FLASH_DISPATCH_T(float, FN, __VA_ARGS__);       \
     return (int)cudaErrorInvalidValue;                                 \
   } while (0)
 
@@ -487,8 +495,8 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       void* dq, int bh, int t_q, int t_k,
                                       int d, int causal, int dtype,
                                       void* stream) {
-  FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, bh, t_q, t_k, d,
-                 causal, (cudaStream_t)stream);
+  FLASH_DISPATCH_F32(launch_dq, q, k, v, dout, lse, delta, dq, bh, t_q, t_k,
+                     d, causal, (cudaStream_t)stream);
 }
 
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
@@ -497,6 +505,6 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        void* dk, void* dv, int bh, int t_q,
                                        int t_k, int d, int causal, int dtype,
                                        void* stream) {
-  FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, bh, t_q, t_k,
-                 d, causal, (cudaStream_t)stream);
+  FLASH_DISPATCH_F32(launch_dkv, q, k, v, dout, lse, delta, dk, dv, bh, t_q,
+                     t_k, d, causal, (cudaStream_t)stream);
 }

@@ -7,7 +7,9 @@ at `max_batch`, each bucket goes through log-mel -> encoder -> greedy
 decode, or beam search with `num_beams` > 1 (repetition penalty 1.15,
 no-repeat 3-gram) -> emotion head on the decode's hidden states. Loading
 from orbax checkpoints or HF directories is not ported yet; build the
-pipeline from bridged or seeded parameters (`core.params`).
+pipeline from bridged or seeded parameters (`core.params`). The pipeline
+runs on the card unless the caller asks for the CPU (`device="cpu"`); it
+raises when CUDA is asked for and absent.
 """
 
 from __future__ import annotations
@@ -18,16 +20,18 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from audio_transformers_tpu.core.config import (DecodeConfig,
-                                                EmotionWhisperConfig,
-                                                MelConfig)
-from audio_transformers_tpu.utils.audio import resample, to_mono
-from audio_transformers_tpu_torch.core.params import init, to_device
+from audio_transformers_tpu_torch.core.config import (DecodeConfig,
+                                                      EmotionWhisperConfig,
+                                                      MelConfig)
+from audio_transformers_tpu_torch.core.params import (compute_dtype_for,
+                                                      init, resolve_device,
+                                                      to_device)
 from audio_transformers_tpu_torch.models.whisper import beam as wbeam
 from audio_transformers_tpu_torch.models.whisper import decode as wdecode
 from audio_transformers_tpu_torch.models.whisper import emotion as emo
 from audio_transformers_tpu_torch.models.whisper import model as wm
 from audio_transformers_tpu_torch.ops.mel import log_mel
+from audio_transformers_tpu_torch.utils.audio import resample, to_mono
 
 # The reference's fallback label list.
 DEFAULT_EMOTION_LABELS = [
@@ -38,25 +42,26 @@ DEFAULT_EMOTION_LABELS = [
 
 class EmotionWhisperPipeline:
     """params: the port's {"whisper", "emotion_head"} tree (moved to
-    `device` here). compute_dtype: the activation dtype of the encoder and
-    decoder (bfloat16 on the GPU; the CPU tests use float32). num_beams > 1
+    `device` here; "cuda" by default, and an error when there is no card).
+    compute_dtype: the activation dtype of the encoder and decoder; by
+    default bfloat16 on the card and float32 on the CPU. num_beams > 1
     decodes by beam search (`models/whisper/beam.py`)."""
 
     def __init__(self, params: dict, cfg: EmotionWhisperConfig,
                  mel_cfg: Optional[MelConfig] = None,
                  idx_to_label: Optional[Dict[int, str]] = None,
-                 tokenizer=None, *, device="cpu",
-                 compute_dtype: torch.dtype = torch.bfloat16,
+                 tokenizer=None, *, device="cuda",
+                 compute_dtype: Optional[torch.dtype] = None,
                  suppress_ids=None, kv_quant: str = "none",
                  num_beams: int = 1):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.params = to_device(params, self.device)
         self.cfg = cfg
         self.mel_cfg = mel_cfg or MelConfig.whisper(n_mels=cfg.whisper.n_mels)
         self.idx_to_label = idx_to_label or dict(
             enumerate(DEFAULT_EMOTION_LABELS))
         self.tokenizer = tokenizer
-        self.compute_dtype = compute_dtype
+        self.compute_dtype = compute_dtype or compute_dtype_for(self.device)
         self.kv_quant = kv_quant
         self.num_beams = num_beams
         self.suppress_ids = tuple(
@@ -189,16 +194,13 @@ class EmotionWhisperPipeline:
         return {"transcription": transcription, "segments": segments}
 
 
-def self_test(duration: float = 12.0) -> dict:
+def self_test(duration: float = 12.0, *, device="cuda") -> dict:
     """Analyze a synthesized sine+noise clip with seeded whisper-tiny
-    weights: bfloat16 on the GPU when there is one, else float32 on the
-    CPU."""
-    from audio_transformers_tpu.utils.audio import synth_clip
+    weights on `device` (bfloat16 on the card, float32 on the CPU); raises
+    when CUDA is asked for and absent."""
+    from audio_transformers_tpu_torch.utils.audio import synth_clip
 
-    cuda = torch.cuda.is_available()
     cfg = EmotionWhisperConfig()
     params = init(cfg, torch.Generator().manual_seed(0))
-    pipe = EmotionWhisperPipeline(
-        params, cfg, device="cuda" if cuda else "cpu",
-        compute_dtype=torch.bfloat16 if cuda else torch.float32)
+    pipe = EmotionWhisperPipeline(params, cfg, device=device)
     return pipe.analyze(synth_clip(duration, 16000), 16000)

@@ -43,7 +43,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from audio_transformers_tpu.core.config import DecodeConfig, WhisperConfig
+from audio_transformers_tpu_torch.core.config import (DecodeConfig,
+                                                      WhisperConfig)
 from audio_transformers_tpu_torch.models.whisper import model as wm
 from audio_transformers_tpu_torch.models.whisper.decode import (_SPACE_TOKEN,
                                                                 build_prompt)

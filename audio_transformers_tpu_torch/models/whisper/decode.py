@@ -24,7 +24,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from audio_transformers_tpu.core.config import DecodeConfig, WhisperConfig
+from audio_transformers_tpu_torch.core.config import (DecodeConfig,
+                                                      WhisperConfig)
 from audio_transformers_tpu_torch.models.whisper import model as wm
 from audio_transformers_tpu_torch.ops import decode_logits as dl
 from audio_transformers_tpu_torch.ops import logit_processors as lp
@@ -188,7 +189,8 @@ def generate_with_fallback(params: dict, cfg: WhisperConfig,
     ported yet and raises when a row is flagged."""
     import numpy as np
 
-    from audio_transformers_tpu.infer.metrics import compression_ratio
+    from audio_transformers_tpu_torch.infer.metrics import \
+        compression_ratio
 
     out = generate(params, cfg, dcfg, enc, prompt=prompt,
                    suppress_ids=suppress_ids)

@@ -14,7 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from audio_transformers_tpu.core.config import EmotionWhisperConfig
+from audio_transformers_tpu_torch.core.config import \
+    EmotionWhisperConfig
 from audio_transformers_tpu_torch.core import params as cp
 from audio_transformers_tpu_torch.models.whisper import model as wm
 from audio_transformers_tpu_torch.ops import nn

@@ -34,7 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from audio_transformers_tpu.core.config import WhisperConfig
+from audio_transformers_tpu_torch.core.config import WhisperConfig
 from audio_transformers_tpu_torch.core.params import map_tensors
 from audio_transformers_tpu_torch.ops import nn
 from audio_transformers_tpu_torch.ops.decode_attention import \

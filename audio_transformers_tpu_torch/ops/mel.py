@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from audio_transformers_tpu.core.config import MelConfig
+from audio_transformers_tpu_torch.core.config import MelConfig
 from audio_transformers_tpu_torch.ops import _build
 
 # ---------------------------------------------------------------------------

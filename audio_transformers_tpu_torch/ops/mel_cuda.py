@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from audio_transformers_tpu.core.config import MelConfig
+from audio_transformers_tpu_torch.core.config import MelConfig
 from audio_transformers_tpu_torch.ops import _build
 from audio_transformers_tpu_torch.ops.mel import (device_bases,
                                                   log_mel_torch,

@@ -26,7 +26,7 @@ from typing import Callable, Optional
 
 import torch
 
-from audio_transformers_tpu.core.config import OptimizerConfig
+from audio_transformers_tpu_torch.core.config import OptimizerConfig
 from audio_transformers_tpu_torch.core.params import (FROZEN,
                                                       leaves_with_path)
 

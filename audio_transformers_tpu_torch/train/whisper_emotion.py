@@ -31,9 +31,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from audio_transformers_tpu.core.config import (EmotionWhisperConfig,
-                                                MelConfig, TrainConfig)
+from audio_transformers_tpu_torch.core.config import (
+    EmotionWhisperConfig, MelConfig, TrainConfig)
 from audio_transformers_tpu_torch.core import params as cp
+from audio_transformers_tpu_torch.core.params import resolve_device
 from audio_transformers_tpu_torch.core.metrics import MetricLogger, StepTimer
 from audio_transformers_tpu_torch.models.whisper import emotion as emo
 from audio_transformers_tpu_torch.ops.mel import log_mel
@@ -67,15 +68,6 @@ def dual_loss(logits: torch.Tensor, emotion_logits: torch.Tensor,
     return {"loss": transcription + emotion_weight * emotion,
             "transcription_loss": transcription, "emotion_loss": emotion,
             "emotion_accuracy": acc}
-
-
-def resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' was asked for, but no CUDA device "
-                           "is present (pass device='cpu' to train on the "
-                           "CPU)")
-    return device
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> dict:

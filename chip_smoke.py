@@ -12,7 +12,10 @@ each raising on failure:
   3. each serving kernel against its plain PyTorch version on the card at
      the serving path's shapes (B in {4, 16}, T=1500, V=51865 padded to
      52224, 30 s audio), with the tolerances below, and their times
-     (CUDA events, median of 20 after warm-up);
+     (CUDA events, median of 20 after warm-up); for K1 also the time of
+     torch's scaled_dot_product_attention (SDPA) on the same bf16 q, K, V
+     (one query; K and V in SDPA's (B, H, T, hd) layout, and as transposed
+     views of the kernel's time-minor tensors);
   4. correctness on a small input: the port's pipeline at the test config
      in float32 on the card (kernels) equals the same pipeline on the CPU
      (plain versions);
@@ -24,8 +27,13 @@ each raising on failure:
   7. the flash-attention kernels K4a/b/c against their plain versions at
      the training shapes of whisper-tiny at batch 16 (B*H = 96, d = 64:
      encoder self-attention 1500 x 1500, decoder causal self-attention
-     31 x 31, cross-attention 31 x 1500), float32 and bfloat16, and their
-     times in bfloat16;
+     31 x 31, cross-attention 31 x 1500) and two ragged ones (65 x 65
+     causal, 129 x 1500), float32 and bfloat16, and their times in
+     bfloat16, beside SDPA's forward and its backward
+     (torch.autograd.grad with retain_graph) on the same inputs, with the
+     backend SDPA chose; in bfloat16 K4b/K4c are the tensor-core kernels
+     of csrc/flash_attention_bwd_sm90.cu, in float32 the FMA kernels of
+     csrc/flash_attention.cu;
   8. correctness of one train step on a small input: the test config in
      float32, kernels on the card against plain versions on the CPU;
   9. the training path: the train_whisper CLI on whisper-tiny (bfloat16,
@@ -33,7 +41,7 @@ each raising on failure:
      every launch counter reset just before and read just after;
   10. a fixed batch overfit for 20 constant-lr steps: the loss falls;
   11. steady-state train-step time at batch 16, flash kernels against the
-     plain attention, in turns;
+     plain attention, four turns each in alternating order;
   12. the beam reorder K5 against its plain version on the card, on the
      whisper-tiny beam step's own buffers at L=66 (8 self K/V of
      (rows, 6, 64, 66) in bf16, or in int8 with 8 f32 scales of
@@ -67,7 +75,11 @@ Tolerances (kernel vs plain version, on the card):
      max(1, max|plain|) (sum order only); in bfloat16, within two bf16
      ulps at the tensor's largest magnitude (the output is rounded to
      bf16, and the kernel rounds p against its running maximum where the
-     plain version takes the final one).
+     plain version takes the final one). For dq and dk that magnitude is
+     taken no smaller than 2^-17 * d * max|dO| * max|v| * max(max|q|,
+     max|k|): ds = p (dP - delta) cancels (exactly when Tk = 1), leaving
+     the float32 sum-order noise of dP, about 2^-24 d max|dO| max|v| per
+     entry, in both versions.
   K5 permute_rows: bit for bit (a pure copy).
   One train step, card vs CPU (test config, float32): losses within 1e-4
      relative; gradients within 1e-3 * max(1, max|cpu|) per leaf (log-mel
@@ -75,7 +87,14 @@ Tolerances (kernel vs plain version, on the card):
      (the first Adam update is +-lr per element, so an element whose tiny
      gradient flips sign under sum-order noise moves 2 * lr apart).
 
-The next-to-last line is a JSON object with one entry per kernel; the
+The next-to-last line is a JSON object with one entry per kernel: its
+time and its plain version's at the path's shape, `bound_ms` (the larger
+of the bytes it must move over 3.35 TB/s and its operations over the peak
+rate of their type, 989 TFLOP/s bf16 or 67 TFLOP/s float32, computed from
+this run's inputs) and `bound_by`, and `library_ms`, the time of one
+PyTorch call computing the same function where there is one (SDPA for
+K1, on K/V in its own layout, and for K4; its backward computes K4b and
+K4c together), else null. The
 last line is {"ok": true, "device": {...}}. Nothing of JAX is imported.
 """
 
@@ -97,6 +116,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 K1_TOL_F32, K1_TOL_BF16, K2_GAP, K3_TOL = 1e-5, 2e-2, 1e-3, 2e-4
 K4_TOL_F32, K4_ULPS_BF16 = 2e-5, 2
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense)
+HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 REPLACES = {
     "decode_cross_attention": "audio_transformers_tpu/ops/decode_attention.py:100",
     "fused_greedy_step": "audio_transformers_tpu/ops/decode_logits.py:82",
@@ -111,8 +132,8 @@ SOURCES = {
     "fused_greedy_step": "audio_transformers_tpu_torch/csrc/decode_logits.cu",
     "log_mel": "audio_transformers_tpu_torch/csrc/mel.cu",
     "flash_attention_fwd": "audio_transformers_tpu_torch/csrc/flash_attention.cu",
-    "flash_attention_bwd_dq": "audio_transformers_tpu_torch/csrc/flash_attention.cu",
-    "flash_attention_bwd_dkv": "audio_transformers_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_dq": "audio_transformers_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
+    "flash_attention_bwd_dkv": "audio_transformers_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
     "permute_rows": "audio_transformers_tpu_torch/csrc/permute.cu",
 }
 SERVING = ("decode_cross_attention", "fused_greedy_step", "log_mel")
@@ -120,9 +141,11 @@ TRAINING = ("log_mel", "flash_attention_fwd", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkv")
 BEAM = ("permute_rows", "log_mel")
 N_BEAMS = 4
-# training shapes at whisper-tiny width and batch 16: (name, Tq, Tk, causal)
+# training shapes at whisper-tiny width and batch 16, then two ragged
+# ones: (name, Tq, Tk, causal)
 K4_SHAPES = (("encoder", 1500, 1500, False), ("decoder", 31, 31, True),
-             ("cross", 31, 1500, False))
+             ("cross", 31, 1500, False), ("ragged65", 65, 65, True),
+             ("ragged129", 129, 1500, False))
 
 
 def synth_clip(duration, sr, *, freq=440.0, noise=0.05, seed=0):
@@ -188,6 +211,32 @@ def device_ms(fn, reps=20):
     return sum(e.time_range.elapsed_us() for e in kernels) / reps / 1e3
 
 
+def bound(nbytes, flops, flops_per_s):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes over the memory rate and the operations over the peak
+    rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def sdpa_backend(fn):
+    """The names of the aten attention ops one call of fn runs (they name
+    the backend SDPA chose: flash, efficient, cudnn or math)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if "attention" in e.name and e.name.startswith("aten::_")})
+    return ",".join(names) or "unknown"
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -226,8 +275,38 @@ def check_k1(torch, da, gen, results):
         ms = time_ms(lambda: da.decode_cross_attention(qb, kb, vb))
         plain = time_ms(lambda: da.decode_cross_attention_reference(qb, kb,
                                                                     vb))
-        log(f"K1 B={b} bf16 time: kernel {ms:.4f} ms, plain {plain:.4f} ms")
-        results.setdefault(b, {})["decode_cross_attention"] = (ms, plain)
+        # SDPA on the same values, one query: K and V in the (B, H, T, hd)
+        # layout it is built for (the cross K/V are written once per clip,
+        # so their layout is free), and as views of the kernel's time-minor
+        # (B, H, hd, T) tensors, which send it to its math backend
+        want = da.decode_cross_attention_reference(qb, kb, vb)
+        sq = qb[:, :, None, :]
+        lib, backend = {}, {}
+        for layout, (sk, sv) in (
+                ("contiguous", (kb.transpose(2, 3).contiguous(),
+                                vb.transpose(2, 3).contiguous())),
+                ("time-minor", (kb.transpose(2, 3), vb.transpose(2, 3)))):
+            def sdpa(sk=sk, sv=sv):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    sq, sk, sv)
+            got = sdpa()
+            torch.cuda.synchronize()
+            lib_err = (got[:, :, 0].float() - want.float()).abs().max().item()
+            require(lib_err <= K1_TOL_BF16,
+                    f"SDPA {layout} B={b}: {lib_err} > {K1_TOL_BF16}")
+            lib[layout] = time_ms(sdpa)
+            backend[layout] = sdpa_backend(sdpa)
+        bnd = bound(nbytes(qb, kb, vb, qb), 4 * b * h * t * hd, BF16_FLOPS)
+        log(f"K1 B={b} bf16 time: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            + ", ".join(f"SDPA {layout} {lib[layout]:.4f} ms "
+                        f"({backend[layout]})" for layout in lib)
+            + f"; bound {bnd[0]:.4f} ms ({bnd[1]})")
+        results.setdefault(b, {})["decode_cross_attention"] = {
+            "ms": ms, "plain_ms": plain, "library_ms": lib["contiguous"],
+            "library": "scaled_dot_product_attention, (B, H, T, hd) K/V "
+                       f"({backend['contiguous']})",
+            "library_time_minor_ms": lib["time-minor"],
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
     return worst
 
 
@@ -302,9 +381,15 @@ def check_k2(torch, dl, lp, decode, cfg, gen, results):
         ms = time_ms(lambda: dl.fused_greedy_step(hidden, table_t, add, **kw))
         plain = time_ms(lambda: dl.fused_greedy_step_reference(
             hidden, table_t, add, **kw))
+        # reads the table, the bias row, hidden and the two masks once;
+        # writes one int32 token per row
+        bnd = bound(nbytes(hidden, table_t, add, seen, ban) + 4 * b,
+                    2 * b * d * v_pad, BF16_FLOPS)
         log(f"K2 B={b} penalty+ban time: kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms")
-        results[b]["fused_greedy_step"] = (ms, plain)
+            f"plain {plain:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})")
+        results[b]["fused_greedy_step"] = {
+            "ms": ms, "plain_ms": plain, "library_ms": None,
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
     return worst, below
 
 
@@ -323,8 +408,19 @@ def check_k3(torch, mel, mel_cfg, gen, results):
         worst = max(worst, err)
         ms = time_ms(lambda: mel.log_mel(wav, mel_cfg))
         plain = time_ms(lambda: mel.log_mel_torch(wav, mel_cfg))
-        log(f"K3 B={b} time: kernel {ms:.4f} ms, plain {plain:.4f} ms")
-        results[b]["log_mel"] = (ms, plain)
+        # float32 operations the function needs per frame: the window, a
+        # real FFT of n_fft padded to a power of two (2.5 N log2 N), the
+        # power spectrum and the filterbank product
+        n_freqs, frames = mel_cfg.n_fft // 2 + 1, got.shape[1]
+        n = 1 << (mel_cfg.n_fft - 1).bit_length()
+        flops = b * frames * (mel_cfg.n_fft + 2.5 * n * math.log2(n)
+                              + 3 * n_freqs + 2 * n_freqs * mel_cfg.n_mels)
+        bnd = bound(nbytes(wav, got), flops, F32_FLOPS)
+        log(f"K3 B={b} time: kernel {ms:.4f} ms, plain {plain:.4f} ms; "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]}, {flops / 1e9:.2f} GFLOP)")
+        results[b]["log_mel"] = {"ms": ms, "plain_ms": plain,
+                                 "library_ms": None, "bound_ms": bnd[0],
+                                 "bound_by": bnd[1]}
     return worst
 
 
@@ -433,14 +529,51 @@ def check_server(pipe, synth_clip):
 # ---------------------------------------------------------------------------
 
 
-def _k4_err(got, want, dtype):
-    """(max abs error, limit) of a K4 output against its plain version."""
+def _k4_err(got, want, dtype, floor=0.0):
+    """(max abs error, limit) of a K4 output against its plain version;
+    `floor` bounds the magnitude the bf16 ulps are taken at from below."""
     import torch
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
     if dtype == torch.float32:
         return err, K4_TOL_F32 * max(1.0, scale)
+    scale = max(scale, floor)
     return err, K4_ULPS_BF16 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def k4_cancel_floor(q, k, v, g):
+    """The magnitude below which dq and dk are float32 noise of the
+    cancellation ds = p (dP - delta): 2^7 times its per-entry bound."""
+    m = [x.float().abs().max().item() for x in (q, k, v, g)]
+    return 2.0 ** -17 * q.shape[-1] * m[3] * m[2] * max(m[0], m[1])
+
+
+def k4_pairs(tq, tk, causal):
+    """(query, key) pairs the attention computes."""
+    if not causal:
+        return tq * tk
+    return sum(min(i + 1, tk) for i in range(tq))
+
+
+def _time_sdpa(torch, q, k, v, g, causal):
+    """SDPA's forward and backward (dq, dk, dv by torch.autograd.grad with
+    retain_graph) on the K4 operands, as (B=16, H=6, T, d) views, scale 1
+    (q is pre-scaled): (fwd ms, bwd ms, fwd backend, bwd backend)."""
+    f = torch.nn.functional.scaled_dot_product_attention
+    bh, tq, d = q.shape
+    qs, ks, vs = (x.detach().view(16, bh // 16, x.shape[1], d)
+                  .requires_grad_() for x in (q, k, v))
+    gs = g.view(16, bh // 16, tq, d)
+    with torch.no_grad():
+        fwd = time_ms(lambda: f(qs, ks, vs, is_causal=causal, scale=1.0))
+    out = f(qs, ks, vs, is_causal=causal, scale=1.0)
+
+    def bwd():
+        return torch.autograd.grad(out, (qs, ks, vs), gs, retain_graph=True)
+    with torch.no_grad():
+        fwd_backend = sdpa_backend(
+            lambda: f(qs, ks, vs, is_causal=causal, scale=1.0))
+    return fwd, time_ms(bwd), fwd_backend, sdpa_backend(bwd)
 
 
 def check_k4(torch, att, gen, times):
@@ -464,41 +597,68 @@ def check_k4(torch, att, gen, times):
             bwd = (q, k, v, g, p_lse, delta, causal)
             dq = att.flash_attention_bwd_dq(*bwd)
             dk, dv = att.flash_attention_bwd_dkv(*bwd)
+            dq2 = att.flash_attention_bwd_dq(*bwd)
+            dk2, dv2 = att.flash_attention_bwd_dkv(*bwd)
             p_dq = att.flash_attention_bwd_dq_reference(*bwd)
             p_dk, p_dv = att.flash_attention_bwd_dkv_reference(*bwd)
             torch.cuda.synchronize()
+            require(torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                    and torch.equal(dv, dv2),
+                    f"K4b/c {name} {dtype}: two launches differ")
             lse_err = (lse - p_lse).abs().max().item()
             require(lse_err <= 1e-4, f"K4a {name} lse: {lse_err}")
-            for kern, got, want in (("flash_attention_fwd", out, p_out),
-                                    ("flash_attention_bwd_dq", dq, p_dq),
-                                    ("flash_attention_bwd_dkv", dk, p_dk),
-                                    ("flash_attention_bwd_dkv", dv, p_dv)):
-                err, tol = _k4_err(got, want, dtype)
+            floor = k4_cancel_floor(q, k, v, g)
+            errs = {}
+            for kern, part, got, want, fl in (
+                    ("flash_attention_fwd", "out", out, p_out, 0.0),
+                    ("flash_attention_bwd_dq", "dq", dq, p_dq, floor),
+                    ("flash_attention_bwd_dkv", "dk", dk, p_dk, floor),
+                    ("flash_attention_bwd_dkv", "dv", dv, p_dv, 0.0)):
+                err, tol = _k4_err(got, want, dtype, fl)
                 require(got.dtype == dtype and got.shape == want.shape,
                         f"{kern} {name}: dtype/shape")
                 require(err <= tol, f"{kern} {name} {dtype}: {err} > {tol}")
+                errs[part] = err
                 if dtype == torch.bfloat16:
                     worst[kern] = max(worst[kern], err)
             log(f"K4 {name} {str(dtype)[6:]:8s} max_abs_err out "
-                f"{_k4_err(out, p_out, dtype)[0]:.3e} lse {lse_err:.3e} "
-                f"dq {_k4_err(dq, p_dq, dtype)[0]:.3e} "
-                f"dk {_k4_err(dk, p_dk, dtype)[0]:.3e} "
-                f"dv {_k4_err(dv, p_dv, dtype)[0]:.3e}")
+                f"{errs['out']:.3e} lse {lse_err:.3e} dq {errs['dq']:.3e} "
+                f"dk {errs['dk']:.3e} dv {errs['dv']:.3e}; two launches "
+                f"bit-equal")
         # the training path's operands: bf16
+        pairs = k4_pairs(tq, tk, causal)
+        io_fwd = nbytes(q, k, v, q) + 4 * bh * tq
+        io_bwd = nbytes(q, k, v, g, lse, delta)
         t = {"flash_attention_fwd": (
                 time_ms(lambda: att.flash_attention_fwd(q, k, v, causal)),
                 time_ms(lambda: att.flash_attention_fwd_reference(
-                    q, k, v, causal))),
+                    q, k, v, causal)),
+                bound(io_fwd, 4 * bh * pairs * d, BF16_FLOPS)),
              "flash_attention_bwd_dq": (
                 time_ms(lambda: att.flash_attention_bwd_dq(*bwd)),
-                time_ms(lambda: att.flash_attention_bwd_dq_reference(*bwd))),
+                time_ms(lambda: att.flash_attention_bwd_dq_reference(*bwd)),
+                bound(io_bwd + nbytes(q), 6 * bh * pairs * d, BF16_FLOPS)),
              "flash_attention_bwd_dkv": (
                 time_ms(lambda: att.flash_attention_bwd_dkv(*bwd)),
                 time_ms(lambda: att.flash_attention_bwd_dkv_reference(
-                    *bwd)))}
-        log(f"K4 {name} bf16 time (kernel / plain ms): " + ", ".join(
-            f"{n[16:]} {a:.4f} / {b:.4f}" for n, (a, b) in t.items()))
-        times[name] = t
+                    *bwd)),
+                bound(io_bwd + nbytes(k, v), 8 * bh * pairs * d,
+                      BF16_FLOPS))}
+        lib_fwd, lib_bwd, fwd_op, bwd_op = _time_sdpa(torch, q, k, v, g,
+                                                      causal)
+        times[name] = {
+            kern: {"ms": a, "plain_ms": b, "bound_ms": bnd[0],
+                   "bound_by": bnd[1],
+                   "library_ms": lib_fwd if kern.endswith("fwd") else lib_bwd,
+                   "library": "scaled_dot_product_attention " + (
+                       f"forward ({fwd_op})" if kern.endswith("fwd") else
+                       f"backward, dq, dk and dv together ({bwd_op})")}
+            for kern, (a, b, bnd) in t.items()}
+        log(f"K4 {name} bf16 time (kernel / plain / bound ms): " + ", ".join(
+            f"{n[16:]} {a:.4f} / {b:.4f} / {bnd[0]:.4f}"
+            for n, (a, b, bnd) in t.items())
+            + f"; SDPA forward {lib_fwd:.4f} ms ({fwd_op}), backward (dq, "
+            f"dk, dv) {lib_bwd:.4f} ms ({bwd_op})")
     return worst
 
 
@@ -639,13 +799,15 @@ def check_overfit(torch, port, params0):
 
 def time_train_step(torch, port, params0):
     """Steady-state train-step ms at batch 16: plain attention vs flash
-    kernels, in turns (plain, flash, flash, plain)."""
+    kernels, four turns each (plain, flash, flash, plain, flash, plain,
+    plain, flash); returns the mean of each path's turns."""
     from audio_transformers_tpu_torch.train.whisper_emotion import \
         batch_to_device
     w = port.WhisperConfig()
     batch = batch_to_device(train_batch(16, 30.0, w, 9, seed=13), "cuda")
     runs = {}
-    for attn in ("xla", "flash", "flash", "xla"):
+    for attn in ("xla", "flash", "flash", "xla", "flash", "xla", "xla",
+                 "flash"):
         step = _tiny_steps(torch, port, params0, attn, 3e-5, 16)
         for _ in range(2):
             step(batch)
@@ -659,7 +821,7 @@ def time_train_step(torch, port, params0):
         del step
         torch.cuda.empty_cache()
     log(f"train step (whisper-tiny, bf16, batch 16, 30 s clips), ms per "
-        f"step over 5 steps, two turns each: plain attention "
+        f"step over 5 steps, four turns each: plain attention "
         f"{runs['xla']}, flash kernels {runs['flash']}")
     return {k: statistics.mean(v) for k, v in runs.items()}
 
@@ -718,14 +880,18 @@ def check_k5(torch, pm, gen):
 
             def plain():
                 pm.permute_rows_reference(bufs, perm, out=out_plain)
+            # the rows this run's parents need: each distinct one read once,
+            # every output row written once
+            read = nbytes(*bufs) * perm.unique().numel() // rows
             t = (time_ms(kernel), time_ms(plain), device_ms(kernel),
-                 device_ms(plain))
+                 device_ms(plain),
+                 bound(read + nbytes(*bufs) + nbytes(perm), 0, BF16_FLOPS))
             moved = 2 * sum(a.nbytes for a in bufs)
             log(f"K5 rows={rows} {mode}: {len(bufs)} buffers, bit exact; "
                 f"per call kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms; device "
                 f"time kernel {t[2]:.4f} ms ({moved / t[2] / 1e6:.1f} GB/s "
                 f"of {moved / 1e6:.1f} MB read + written), plain "
-                f"{t[3]:.4f} ms")
+                f"{t[3]:.4f} ms; bound {t[4][0]:.4f} ms")
             times[(rows, mode)] = t
             del bufs, got, want, out, out_plain
     return times
@@ -946,7 +1112,10 @@ def main() -> int:
     del pipe
     torch.cuda.empty_cache()
 
-    # 7. K4 against its plain versions at the training shapes
+    # 7. K4 against its plain versions at the training shapes; the bf16
+    # backward (the training path's) is the tensor-core source
+    require(att.BWD_SOURCE[torch.bfloat16] == "flash_attention_bwd_sm90",
+            "bf16 K4b/K4c route to csrc/flash_attention_bwd_sm90.cu")
     k4_times = {}
     err.update(check_k4(torch, att, gen, k4_times))
 
@@ -990,25 +1159,25 @@ def main() -> int:
 
     kernels = []
     for name in SERVING:
-        ms, plain = times[4][name]
-        ms16, plain16 = times[16][name]
+        t4, t16 = times[4][name], times[16][name]
         entry = {"name": name, "route": "cuda", "source": SOURCES[name],
                  "replaces": REPLACES[name], "launches": stats[name][0],
-                 "max_abs_err": err[name], "ms": ms, "plain_ms": plain,
-                 "ms_b16": ms16, "plain_ms_b16": plain16}
+                 "max_abs_err": err[name], **t4,
+                 **{f"{k}_b16": v for k, v in t16.items()}}
         if name in train_launches:
             entry["launches_training"] = train_launches[name]
         kernels.append(entry)
     for name in TRAINING[1:]:
-        ms, plain = k4_times["encoder"][name]
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],
                         "launches": train_launches[name],
-                        "max_abs_err": err[name], "ms": ms, "plain_ms": plain,
-                        **{f"{k}_ms": k4_times[k][name][0]
-                           for k in ("decoder", "cross")},
-                        **{f"{k}_plain_ms": k4_times[k][name][1]
-                           for k in ("decoder", "cross")}})
+                        "max_abs_err": err[name],
+                        **k4_times["encoder"][name],
+                        **{f"{shape}_{k}": v
+                           for shape in k4_times if shape != "encoder"
+                           for k, v in k4_times[shape][name].items()
+                           if k != "library"}})
+    k5 = k5_times[(64, "bf16")]
     kernels.append({
         "name": "permute_rows", "route": "cuda",
         "source": SOURCES["permute_rows"],
@@ -1016,12 +1185,13 @@ def main() -> int:
         "launches": beam_runs["none"]["permute_rows"][0],
         "launches_int8": beam_runs["int8"]["permute_rows"][0],
         "max_abs_err": err["permute_rows"],
-        "ms": k5_times[(64, "bf16")][0], "plain_ms": k5_times[(64, "bf16")][1],
+        "ms": k5[0], "plain_ms": k5[1], "bound_ms": k5[4][0],
+        "bound_by": k5[4][1], "library_ms": None,
         **{f"{key}_{rows}{'' if mode == 'bf16' else '_int8'}": k5_times[
-            (rows, mode)][i]
+            (rows, mode)][i] if i < 4 else k5_times[(rows, mode)][4][0]
            for rows in (64, 512) for mode in ("bf16", "int8")
            for i, key in enumerate(("ms", "plain_ms", "device_ms",
-                                    "plain_device_ms"))},
+                                    "plain_device_ms", "bound_ms"))},
         "beam_step_ms": {str(b): v["k5"] for b, v in beam_ms.items()},
         "beam_step_plain_ms": {str(b): v["plain"]
                                for b, v in beam_ms.items()}})

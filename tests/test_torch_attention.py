@@ -181,3 +181,14 @@ def test_mha_flash_path_rejects_a_mask():
     with pytest.raises(NotImplementedError):
         nn.multihead_attention(p, x, x, num_heads=2, impl="flash",
                                mask=torch.ones(1, 1, 4, 4, dtype=torch.bool))
+
+
+def test_backward_source_is_fixed_by_dtype():
+    # bf16 takes the tensor-core kernels, float32 the FMA kernels, and no
+    # importer can reroute either
+    assert dict(att.BWD_SOURCE) == {
+        torch.float32: "flash_attention",
+        torch.bfloat16: "flash_attention_bwd_sm90"}
+    with pytest.raises(TypeError):
+        att.BWD_SOURCE[torch.bfloat16] = "flash_attention"
+    assert set(att.BWD_SOURCE.values()) <= set(_build.KERNEL_SOURCES)

@@ -14,7 +14,10 @@ Tolerances, each against the plain version on the same card:
   K4a/b/c flash attention: float32 max|err| <= 2e-5 * max(1, max|plain|)
      (sum order only); bfloat16 within two bf16 ulps at the tensor's
      largest magnitude (bf16 output rounding, p rounded against the
-     kernel's running maximum)
+     kernel's running maximum), for dq and dk taken no smaller than
+     2^-17 * d * max|dO| * max|v| * max(max|q|, max|k|): ds = p (dP -
+     delta) cancels (exactly when Tk = 1) down to float32 sum-order noise
+     of about 2^-24 * d * max|dO| * max|v| per entry
   K5 permute_rows: bit for bit (a pure copy)
 """
 
@@ -23,10 +26,10 @@ import math
 import pytest
 import torch
 
-from audio_transformers_tpu.core.config import (DecodeConfig,
-                                                EmotionWhisperConfig,
-                                                MelConfig, WhisperConfig)
 from audio_transformers_tpu_torch.core import params as cp
+from audio_transformers_tpu_torch.core.config import (DecodeConfig,
+                                                      EmotionWhisperConfig,
+                                                      MelConfig, WhisperConfig)
 from audio_transformers_tpu_torch.models.whisper import decode as dec
 from audio_transformers_tpu_torch.models.whisper import model as wm
 from audio_transformers_tpu_torch.ops import _build
@@ -237,12 +240,18 @@ def test_generate_on_cuda_matches_cpu(cuda):
 # --------------------------------------------------------------------------
 
 
-def _k4_ok(got, want, dtype):
+def _k4_ok(got, want, dtype, floor=0.0):
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
     if dtype == torch.float32:
         return err <= 2e-5 * max(1.0, scale)
+    scale = max(scale, floor)
     return err <= 2 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def _cancel_floor(q, k, v, do):
+    m = [x.float().abs().max().item() for x in (q, k, v, do)]
+    return 2.0 ** -17 * q.shape[-1] * m[3] * m[2] * max(m[0], m[1])
 
 
 @pytest.mark.parametrize("bh,tq,tk,d,causal", [
@@ -302,6 +311,72 @@ def test_k4_rejects_bad_operands(cuda):
         att.flash_attention_fwd(xt, x, x, False)
 
 
+_SM90_T = (1, 31, 63, 64, 65, 129, 1500)
+_SM90_PAIRS = ((1, 1), (1, 1500), (1500, 1), (31, 63), (64, 64), (65, 129),
+               (129, 65), (1500, 1500))
+
+
+def _sm90_cases():
+    cases = [(tq, tk, 64) for tq in _SM90_T for tk in _SM90_T]
+    cases += [(tq, tk, d) for d in (32, 128) for tq, tk in _SM90_PAIRS]
+    # head dims off the 8-element grid take the kernels' element loads
+    cases += [(65, 129, 20), (129, 65, 72), (31, 63, 100)]
+    return cases
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("tq,tk,d", _sm90_cases())
+def test_k4_bwd_sm90_matches_plain(cuda, tq, tk, d, causal):
+    # the bf16 backward runs the tensor-core kernels
+    assert att.BWD_SOURCE[torch.bfloat16] == "flash_attention_bwd_sm90"
+    g = _gen(tq * 7 + tk * 3 + d)
+    bh = 3
+    q = (torch.randn((bh, tq, d), generator=g, device=cuda)
+         / math.sqrt(d)).bfloat16()
+    k, v, do = (torch.randn((bh, n, d), generator=g, device=cuda).bfloat16()
+                for n in (tk, tk, tq))
+    p_out, p_lse = att.flash_attention_fwd_reference(q, k, v, causal)
+    delta = (do.float() * p_out.float()).sum(-1)
+    args = (q, k, v, do, p_lse, delta, causal)
+    before = {n: _build.STATS[n].launches
+              for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+    dq = att.flash_attention_bwd_dq(*args)
+    dk, dv = att.flash_attention_bwd_dkv(*args)
+    # a second launch gives the same bits: every output tile has one owner
+    dq2 = att.flash_attention_bwd_dq(*args)
+    dk2, dv2 = att.flash_attention_bwd_dkv(*args)
+    p_dq = att.flash_attention_bwd_dq_reference(*args)
+    p_dk, p_dv = att.flash_attention_bwd_dkv_reference(*args)
+    torch.cuda.synchronize()
+    for name, n in before.items():
+        assert _build.STATS[name].launches == n + 2
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) \
+        and torch.equal(dv, dv2)
+    floor = _cancel_floor(q, k, v, do)
+    for got, want, fl in ((dq, p_dq, floor), (dk, p_dk, floor),
+                          (dv, p_dv, 0.0)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert _k4_ok(got, want, torch.bfloat16, fl)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_bwd_sources_take_one_dtype_each(cuda, dtype):
+    # float32's backward is the FMA kernels' (its parity route), bf16's the
+    # tensor-core kernels'; each source refuses the other dtype at launch
+    other = {"flash_attention": "flash_attention_bwd_sm90",
+             "flash_attention_bwd_sm90": "flash_attention"}
+    x = torch.zeros((2, 8, 64), device=cuda, dtype=dtype)
+    lse = torch.zeros((2, 8), device=cuda)
+    for symbol, args, n_out in (("flash_attention_bwd_dq", att._DQ_ARGS, 1),
+                                ("flash_attention_bwd_dkv", att._DKV_ARGS,
+                                 2)):
+        fn = _build.function(other[att.BWD_SOURCE[dtype]], symbol, args)
+        rc = fn(*(_build.ptr(t) for t in (x, x, x, x, lse, lse)),
+                *(_build.ptr(x) for _ in range(n_out)),
+                *att._dims(x, x, False))
+        assert rc != 0
+
+
 # --------------------------------------------------------------------------
 # a train step at whisper-tiny width
 # --------------------------------------------------------------------------
@@ -310,8 +385,8 @@ def test_k4_rejects_bad_operands(cuda):
 def test_full_width_train_step_launches_the_kernels(cuda):
     import numpy as np
 
-    from audio_transformers_tpu.core.config import (OptimizerConfig,
-                                                    TrainConfig)
+    from audio_transformers_tpu_torch.core.config import (OptimizerConfig,
+                                                          TrainConfig)
     from audio_transformers_tpu_torch.train import whisper_emotion as tw
     from audio_transformers_tpu_torch.train.optim import build_optimizer
 

@@ -18,14 +18,14 @@ import torch
 
 from audio_transformers_tpu.core.config import (EmotionWhisperConfig,
                                                 WhisperConfig)
-from audio_transformers_tpu.data.tokenizer import ByteTokenizer
 from audio_transformers_tpu.infer import pipeline as jpipe
 from audio_transformers_tpu.models.whisper import emotion as jemo
-from audio_transformers_tpu.serve.batching import MicroBatcher
-from audio_transformers_tpu.utils.audio import synth_clip
 from audio_transformers_tpu_torch.core import params as cp
+from audio_transformers_tpu_torch.data.tokenizer import ByteTokenizer
 from audio_transformers_tpu_torch.infer.pipeline import EmotionWhisperPipeline
 from audio_transformers_tpu_torch.serve import http_server
+from audio_transformers_tpu_torch.serve.batching import MicroBatcher
+from audio_transformers_tpu_torch.utils.audio import synth_clip
 
 TINY = EmotionWhisperConfig(whisper=WhisperConfig.test(),
                             num_emotion_classes=4)
@@ -115,7 +115,8 @@ def server(tmp_path_factory):
     # the port's entry point, loading a saved (bridged) parameter tree
     path = tmp_path_factory.mktemp("params") / "tiny.pt"
     torch.save(cp.init(TINY, torch.Generator().manual_seed(1)), path)
-    pipe = http_server.build_pipeline(config="test", params_path=str(path))
+    pipe = http_server.build_pipeline(config="test", params_path=str(path),
+                                      device="cpu")
     assert pipe.compute_dtype == torch.float32
     assert pipe.cfg.num_emotion_classes == 4
     batcher = MicroBatcher(pipe.analyze_windows, max_wait_ms=50.0)

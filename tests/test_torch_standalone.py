@@ -1,0 +1,306 @@
+"""The port stands alone: it imports nothing of JAX or of the JAX package,
+its copies of the package's JAX-free modules (configs, audio utilities,
+the synthetic Expresso data, the micro-batcher) behave as the originals,
+and its entry points run on the card unless the caller asks for the CPU.
+"""
+
+import dataclasses
+import io
+import os
+import subprocess
+import sys
+import threading
+import wave
+
+import numpy as np
+import pytest
+import torch
+
+from audio_transformers_tpu.core import config as jcfg
+from audio_transformers_tpu.data import expresso as jexp
+from audio_transformers_tpu.data import tokenizer as jtok
+from audio_transformers_tpu.serve import batching as jbatch
+from audio_transformers_tpu.utils import audio as jaudio
+from audio_transformers_tpu_torch.core import config as pcfg
+from audio_transformers_tpu_torch.core import params as cp
+from audio_transformers_tpu_torch.data import expresso as pexp
+from audio_transformers_tpu_torch.data import tokenizer as ptok
+from audio_transformers_tpu_torch.infer import pipeline as ppipe
+from audio_transformers_tpu_torch.serve import batching as pbatch
+from audio_transformers_tpu_torch.serve import http_server
+from audio_transformers_tpu_torch.utils import audio as paudio
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, runpy, sys
+sys.modules["jax"] = None
+sys.modules["audio_transformers_tpu"] = None
+import audio_transformers_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__,
+                                               port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+runpy.run_path("chip_smoke.py", run_name="chip_smoke")
+runpy.run_path("tests/test_torch_cuda.py", run_name="test_torch_cuda")
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and (m.split(".")[0] in ("jax", "audio_transformers_tpu")))
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_nothing_of_jax():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert int(out.stdout.split()[-1]) >= 30
+
+
+# --------------------------------------------------------------------------
+# configs
+# --------------------------------------------------------------------------
+
+
+def _pairs():
+    sizes = ["tiny", "base", "small", "medium", "large", "large-v3", "test"]
+    pairs = [(f"whisper {n}", lambda m, n=n: m.WhisperConfig.by_name(n))
+             for n in sizes]
+    pairs += [
+        ("whisper test()", lambda m: m.WhisperConfig.test()),
+        ("whisper test(512)", lambda m: m.WhisperConfig.test(512)),
+        ("mel whisper()", lambda m: m.MelConfig.whisper()),
+        ("mel urbansound()", lambda m: m.MelConfig.urbansound()),
+        ("emotion", lambda m: m.EmotionWhisperConfig()),
+        ("decode", lambda m: m.DecodeConfig()),
+        ("train", lambda m: m.TrainConfig()),
+        ("optimizer", lambda m: m.OptimizerConfig()),
+        ("data", lambda m: m.DataConfig()),
+        ("urbansound", lambda m: m.UrbanSoundConfig()),
+    ]
+    return pairs
+
+
+@pytest.mark.parametrize("name,make", _pairs(), ids=[p[0] for p in _pairs()])
+def test_config_copies_equal_the_package(name, make):
+    got, want = make(pcfg), make(jcfg)
+    assert type(got).__name__ == type(want).__name__
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.to_json() == want.to_json()
+    # a JSON round trip through the copy gives the copy back
+    import json
+    assert type(got).from_dict(json.loads(got.to_json())) == got
+
+
+def test_config_properties_match():
+    for name in ("tiny", "large-v3", "test"):
+        g, w = pcfg.WhisperConfig.by_name(name), \
+            jcfg.WhisperConfig.by_name(name)
+        assert g.head_dim == w.head_dim
+    g, w = pcfg.MelConfig.whisper(), jcfg.MelConfig.whisper()
+    assert (g.n_freqs, g.effective_f_max, g.num_frames(480000)) \
+        == (w.n_freqs, w.effective_f_max, w.num_frames(480000))
+    with pytest.raises(ValueError):
+        pcfg.WhisperConfig.by_name("huge")
+
+
+# --------------------------------------------------------------------------
+# audio utilities
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("orig,target", [(8000, 16000), (44100, 16000),
+                                         (16000, 16000), (22050, 16000)])
+def test_resample_matches(orig, target):
+    x = np.random.default_rng(orig).standard_normal(orig // 3) \
+        .astype(np.float32)
+    got, want = paudio.resample(x, orig, target), \
+        jaudio.resample(x, orig, target)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(1000,), (2, 1000), (1000, 2), (8, 300)])
+def test_to_mono_matches(shape):
+    x = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
+    assert np.array_equal(paudio.to_mono(x), jaudio.to_mono(x))
+
+
+def _wav(audio, sr, width):
+    buf = io.BytesIO()
+    a = np.clip(audio, -1, 1)
+    pcm = {1: ((a * 127) + 128).astype(np.uint8),
+           2: (a * 32767).astype("<i2"),
+           4: (a * 2147483647).astype("<i4")}[width]
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(pcm.shape[0] if pcm.ndim > 1 else 1)
+        w.setsampwidth(width)
+        w.setframerate(sr)
+        w.writeframes(pcm.T.tobytes() if pcm.ndim > 1 else pcm.tobytes())
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("width,channels", [(1, 1), (2, 1), (2, 2), (4, 1)])
+def test_decode_audio_bytes_matches(width, channels):
+    rng = np.random.default_rng(width * 10 + channels)
+    audio = 0.5 * rng.standard_normal((channels, 4000) if channels > 1
+                                      else 4000)
+    data = _wav(audio, 16000, width)
+    (ga, gsr), (wa, wsr) = paudio.decode_audio_bytes(data), \
+        jaudio.decode_audio_bytes(data)
+    assert gsr == wsr == 16000 and np.array_equal(ga, wa)
+    with pytest.raises(ValueError):
+        paudio.decode_audio_bytes(b"OggS" + bytes(40))
+
+
+@pytest.mark.parametrize("duration,sr,freq,seed", [(1.0, 16000, 440.0, 0),
+                                                   (2.5, 8000, 220.0, 3)])
+def test_synth_clip_matches(duration, sr, freq, seed):
+    assert np.array_equal(
+        paudio.synth_clip(duration, sr, freq=freq, seed=seed),
+        jaudio.synth_clip(duration, sr, freq=freq, seed=seed))
+
+
+# --------------------------------------------------------------------------
+# the synthetic Expresso data
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("num_workers", [0, 2])
+def test_synthetic_expresso_splits_and_batches_match(num_workers):
+    kw = dict(num_samples=60, duration=0.5, vocab_size=1024, seed=7)
+    got = pexp.SyntheticExpresso(ptok.ByteTokenizer(), **kw).splits(seed=7)
+    want = jexp.SyntheticExpresso(jtok.ByteTokenizer(), **kw).splits(seed=7)
+    assert got[3] == want[3]
+    for g, w in zip(got[:3], want[:3]):
+        assert list(g.indices) == list(w.indices)
+        gb, wb = g.batcher(4, num_workers=num_workers), w.batcher(4)
+        batches = [(list(gb.train_epochs(epoch=e)),
+                    list(wb.train_epochs(epoch=e))) for e in (0, 1)]
+        batches.append((list(gb.eval_batches()), list(wb.eval_batches())))
+        for gs, ws in batches:
+            assert len(gs) == len(ws)
+            for a, b in zip(gs, ws):
+                assert a.keys() == b.keys()
+                for k in a:
+                    assert a[k].dtype == b[k].dtype
+                    assert np.array_equal(a[k], b[k]), k
+
+
+def test_tokenizers_match():
+    text = "héllo, wörld"
+    g, w = ptok.ByteTokenizer(), jtok.ByteTokenizer()
+    assert g.encode(text) == w.encode(text)
+    assert g.decode(g.encode(text) + [0, 3]) == w.decode(w.encode(text)
+                                                          + [0, 3])
+
+
+# --------------------------------------------------------------------------
+# the micro-batcher
+# --------------------------------------------------------------------------
+
+
+def _batcher_run(cls):
+    calls = []
+
+    def run(windows, *, max_new_tokens):
+        calls.append((windows.shape[0], max_new_tokens))
+        return ([f"{max_new_tokens}:{x:.3f}" for x in windows[:, 0]],
+                windows[:, :3] * 2.0)
+
+    b = cls(run, max_rows=8, max_wait_ms=200.0)
+    rng = np.random.default_rng(5)
+    reqs = [(rng.standard_normal((n, 16)).astype(np.float32), t)
+            for n, t in ((2, 16), (3, 16), (1, 32), (4, 16))]
+    futs = [None] * len(reqs)
+
+    def submit(i):
+        futs[i] = b.submit(reqs[i][0], max_new_tokens=reqs[i][1])
+
+    threads = [threading.Thread(target=submit, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    results = [f.result(timeout=30) for f in futs]
+    direct = b.runner(reqs[0][0], max_new_tokens=8)
+    with pytest.raises(ValueError):
+        b.submit(np.zeros(4, np.float32), max_new_tokens=8)
+    b.close()
+    return results, direct, b.stats, calls
+
+
+def test_micro_batcher_matches():
+    got, want = _batcher_run(pbatch.MicroBatcher), \
+        _batcher_run(jbatch.MicroBatcher)
+    for (gt, gp), (wt, wp) in zip(got[0], want[0]):
+        assert gt == wt and np.array_equal(gp, wp)
+    assert got[1][0] == want[1][0] and np.array_equal(got[1][1], want[1][1])
+    assert got[2]["requests"] == want[2]["requests"] == 5
+    assert got[2]["rows"] == want[2]["rows"] == 12
+
+
+# --------------------------------------------------------------------------
+# entry points: the card unless the caller asks for the CPU
+# --------------------------------------------------------------------------
+
+TEST_CFG = pcfg.EmotionWhisperConfig(whisper=pcfg.WhisperConfig.test(),
+                                     num_emotion_classes=4)
+
+
+def _pipeline(**kw):
+    params = cp.init(TEST_CFG, torch.Generator().manual_seed(0))
+    return ppipe.EmotionWhisperPipeline(params, TEST_CFG, **kw)
+
+
+def _build(**kw):
+    return http_server.build_pipeline(config="test", **kw)
+
+
+def _self_test(**kw):
+    return ppipe.self_test(duration=1.0, **kw)
+
+
+ENTRY_POINTS = {"pipeline": _pipeline, "build_pipeline": _build,
+                "self_test": _self_test}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_entry_point_needs_a_card_by_default(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default would run")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ENTRY_POINTS[entry]()
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_entry_point_runs_on_the_cpu_when_asked(entry):
+    got = ENTRY_POINTS[entry](device="cpu")
+    if entry == "self_test":
+        out = got
+    else:
+        assert got.device.type == "cpu"
+        assert got.compute_dtype == torch.float32
+        out = got.analyze(paudio.synth_clip(1.2, 16000), 16000,
+                          segment_duration=1.0, max_new_tokens=4)
+    assert isinstance(out["transcription"], str)
+    probs = out["segments"][0]["emotion_probs"]
+    assert abs(sum(probs.values()) - 1.0) < 1e-4
+
+
+def test_server_cli_defaults_to_the_card():
+    seen = {}
+
+    def fake_build(**kw):
+        seen.update(kw)
+        raise SystemExit(0)
+
+    orig = http_server.build_pipeline
+    http_server.build_pipeline = fake_build
+    try:
+        for argv, want in (([], "cuda"), (["--device", "cpu"], "cpu")):
+            with pytest.raises(SystemExit):
+                http_server.main(argv)
+            assert seen["device"] == want
+    finally:
+        http_server.build_pipeline = orig
