@@ -1,4 +1,5 @@
-// K4: flash attention, forward and backward, for Hopper (sm_90a).
+// K4: flash attention, forward and backward, for Hopper (sm_90a), in
+// float32.
 //
 // Replaces the TPU kernels of audio_transformers_tpu/ops/attention.py:
 //   flash_attention_fwd      <- _fwd_kernel       online softmax over key
@@ -6,13 +7,12 @@
 //   flash_attention_bwd_dq   <- _bwd_dq_kernel    p = exp(s - lse),
 //                               ds = p * (dO v^T - delta), dq = ds k
 //   flash_attention_bwd_dkv  <- _bwd_dkv_kernel   dv = p^T dO, dk = ds^T q
-// The forward takes float32 and bfloat16. The backward here is the
-// float32 route (its 2e-5 parity); bfloat16's runs on the tensor cores in
-// flash_attention_bwd_sm90.cu.
+// These are the float32 route (its 2e-5 parity); bfloat16's forward and
+// backward run on the tensor cores in flash_attention_sm90.cu.
 //
-// Layout: q (BH, Tq, d), k and v (BH, Tk, d), dO like q, all row-major in
-// one storage dtype (float32 or bfloat16); lse and delta (BH, Tq) float32.
-// The softmax scale is folded into q by the caller, so no kernel scales.
+// Layout: q (BH, Tq, d), k and v (BH, Tk, d), dO like q, all row-major
+// float32; lse and delta (BH, Tq) float32. The softmax scale is folded
+// into q by the caller, so no kernel scales.
 //
 // What bounds it on the H100: compute. At the whisper-tiny encoder shape
 // (BH = 96 at batch 16, T = 1500, d = 64) the forward is 4*BH*T^2*d = 55
@@ -28,12 +28,8 @@
 // tile, dk/dv by key tile, and nothing is reduced across blocks. Loops are
 // bounded by t_q/t_k and the ragged edge is masked explicitly, so no input
 // is zero-padded; under causality the tiles that lie wholly above the
-// diagonal are skipped (they contribute exactly nothing). bf16 operands
-// become exact float32 values, so a product is exact and only the sum
-// order differs from the TPU's f32-accumulating matmuls. The reference's
-// roundings are kept: p is rounded to the storage dtype before P.V and
-// before dv, ds before dq and dk. The bf16 backward has moved to the
-// tensor cores (flash_attention_bwd_sm90.cu); the forward's turn is next.
+// diagonal are skipped (they contribute exactly nothing). Only the sum
+// order differs from the TPU's f32-accumulating matmuls.
 
 #include "common.cuh"
 
@@ -70,17 +66,6 @@ __device__ __forceinline__ void load_w<2>(float* o, const float* p) {
   o[0] = x.x, o[1] = x.y;
 }
 
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 // Reductions over the 16 threads (one half-warp) that share a row.
 __device__ __forceinline__ float max16(float x) {
 #pragma unroll
@@ -96,23 +81,23 @@ __device__ __forceinline__ float sum16(float x) {
 
 // Rows [r0, r0 + 64) of a row-major (n, d) matrix into a transposed tile
 // dst[k * TS + r], k < DP; zero outside the n rows and d columns.
-template <typename T, int DP>
-__device__ void load_t(float* dst, const T* src, int r0, int n, int d) {
+template <int DP>
+__device__ void load_t(float* dst, const float* src, int r0, int n, int d) {
   for (int i = threadIdx.x; i < 64 * DP; i += NT) {
     const int r = i / DP, k = i % DP;
     float x = 0.f;
-    if (r0 + r < n && k < d) x = to_f(src[(size_t)(r0 + r) * d + k]);
+    if (r0 + r < n && k < d) x = src[(size_t)(r0 + r) * d + k];
     dst[k * TS + r] = x;
   }
 }
 
 // The same rows into a row-major tile dst[r * DP + k].
-template <typename T, int DP>
-__device__ void load_r(float* dst, const T* src, int r0, int n, int d) {
+template <int DP>
+__device__ void load_r(float* dst, const float* src, int r0, int n, int d) {
   for (int i = threadIdx.x; i < 64 * DP; i += NT) {
     const int r = i / DP, k = i % DP;
     float x = 0.f;
-    if (r0 + r < n && k < d) x = to_f(src[(size_t)(r0 + r) * d + k]);
+    if (r0 + r < n && k < d) x = src[(size_t)(r0 + r) * d + k];
     dst[i] = x;
   }
 }
@@ -158,8 +143,9 @@ __device__ __forceinline__ void mm_tr(float (&acc)[4][DP / 16],
 // Writes the rows [r0 + ty*4, +4) of a (64 x DP) accumulator, each divided
 // by div[i] when div is not null, to a row-major (n, d) output; rows >= n
 // and columns >= d are not written.
-template <typename T, int DP>
-__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[4][DP / 16],
+template <int DP>
+__device__ __forceinline__ void store_rows(float* dst,
+                                           const float (&acc)[4][DP / 16],
                                            const float* div, int r0, int n,
                                            int d, int ty, int tx) {
   using C = Cols<DP>;
@@ -172,7 +158,7 @@ __device__ __forceinline__ void store_rows(T* dst, const float (&acc)[4][DP / 16
       const int col = C::col(tx, c);
       if (col < d)
         dst[(size_t)r * d + col] =
-            from_f<T>(div == nullptr ? acc[i][c] : acc[i][c] / div[i]);
+            div == nullptr ? acc[i][c] : acc[i][c] / div[i];
     }
   }
 }
@@ -181,24 +167,24 @@ __device__ __forceinline__ void store_rows(T* dst, const float (&acc)[4][DP / 16
 // K4a: forward. One block per (query tile, bh).
 // ---------------------------------------------------------------------------
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(NT)
-    fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ out,
+    fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ out,
                float* __restrict__ lse, int t_q, int t_k, int d, int causal) {
   using C = Cols<DP>;
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;            // [DP][TS]
   float* kt = qt + DP * TS;    // [DP][TS]
   float* vr = kt + DP * TS;    // [BK][DP]
-  float* pt = vr + BK * DP;    // [BK][TS]: p^T, rounded to T
+  float* pt = vr + BK * DP;    // [BK][TS]: p^T
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q0 = blockIdx.x * BQ;
   const size_t bh = blockIdx.y;
   q += bh * t_q * d;
   k += bh * t_k * d;
   v += bh * t_k * d;
-  load_t<T, DP>(qt, q, q0, t_q, d);
+  load_t<DP>(qt, q, q0, t_q, d);
 
   float m[4], l[4], acc[4][C::NC];
 #pragma unroll
@@ -211,8 +197,8 @@ __global__ void __launch_bounds__(NT)
   const int k_end = causal ? min(t_k, q0 + BQ) : t_k;
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();
-    load_t<T, DP>(kt, k, k0, t_k, d);
-    load_r<T, DP>(vr, v, k0, t_k, d);
+    load_t<DP>(kt, k, k0, t_k, d);
+    load_r<DP>(vr, v, k0, t_k, d);
     __syncthreads();
     float s[4][4] = {};
     mm_tt<DP>(s, qt, kt, ty, tx);
@@ -233,7 +219,7 @@ __global__ void __launch_bounds__(NT)
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         psum += p;
-        pt[(tx * 4 + j) * TS + ty * 4 + i] = round_to<T>(p);
+        pt[(tx * 4 + j) * TS + ty * 4 + i] = p;
       }
       l[i] = l[i] * alpha + sum16(psum);
 #pragma unroll
@@ -251,19 +237,19 @@ __global__ void __launch_bounds__(NT)
     const int r = q0 + ty * 4 + i;
     if (tx == 0 && r < t_q) lse[bh * t_q + r] = m[i] + logf(den[i]);
   }
-  store_rows<T, DP>(out + bh * t_q * d, acc, den, q0, t_q, d, ty, tx);
+  store_rows<DP>(out + bh * t_q * d, acc, den, q0, t_q, d, ty, tx);
 }
 
 // ---------------------------------------------------------------------------
 // K4b: dq. One block per (query tile, bh), looping over key tiles.
 // ---------------------------------------------------------------------------
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(NT)
-    dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
+    dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dq, int t_q, int t_k, int d, int causal) {
+              float* __restrict__ dq, int t_q, int t_k, int d, int causal) {
   using C = Cols<DP>;
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;             // [DP][TS]
@@ -271,7 +257,7 @@ __global__ void __launch_bounds__(NT)
   float* kt = ot + DP * TS;     // [DP][TS]
   float* vt = kt + DP * TS;     // [DP][TS]
   float* kr = vt + DP * TS;     // [BK][DP]
-  float* st = kr + BK * DP;     // [BK][TS]: ds^T, rounded to T
+  float* st = kr + BK * DP;     // [BK][TS]: ds^T
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q0 = blockIdx.x * BQ;
   const size_t bh = blockIdx.y;
@@ -279,8 +265,8 @@ __global__ void __launch_bounds__(NT)
   dout += bh * t_q * d;
   k += bh * t_k * d;
   v += bh * t_k * d;
-  load_t<T, DP>(qt, q, q0, t_q, d);
-  load_t<T, DP>(ot, dout, q0, t_q, d);
+  load_t<DP>(qt, q, q0, t_q, d);
+  load_t<DP>(ot, dout, q0, t_q, d);
 
   float lse_i[4], delta_i[4], acc[4][C::NC];
 #pragma unroll
@@ -294,9 +280,9 @@ __global__ void __launch_bounds__(NT)
   const int k_end = causal ? min(t_k, q0 + BQ) : t_k;
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();
-    load_t<T, DP>(kt, k, k0, t_k, d);
-    load_t<T, DP>(vt, v, k0, t_k, d);
-    load_r<T, DP>(kr, k, k0, t_k, d);
+    load_t<DP>(kt, k, k0, t_k, d);
+    load_t<DP>(vt, v, k0, t_k, d);
+    load_r<DP>(kr, k, k0, t_k, d);
     __syncthreads();
     float s[4][4] = {}, dov[4][4] = {};
     mm_tt<DP>(s, qt, kt, ty, tx);
@@ -310,14 +296,13 @@ __global__ void __launch_bounds__(NT)
         const bool valid =
             kpos < t_k && qpos < t_q && !(causal && kpos > qpos);
         const float p = valid ? expf(s[i][j] - lse_i[i]) : 0.f;
-        st[(tx * 4 + j) * TS + ty * 4 + i] =
-            round_to<T>(p * (dov[i][j] - delta_i[i]));
+        st[(tx * 4 + j) * TS + ty * 4 + i] = p * (dov[i][j] - delta_i[i]);
       }
     }
     __syncthreads();
     mm_tr<DP>(acc, st, kr, ty, tx);
   }
-  store_rows<T, DP>(dq + bh * t_q * d, acc, nullptr, q0, t_q, d, ty, tx);
+  store_rows<DP>(dq + bh * t_q * d, acc, nullptr, q0, t_q, d, ty, tx);
 }
 
 // ---------------------------------------------------------------------------
@@ -325,13 +310,13 @@ __global__ void __launch_bounds__(NT)
 // threads own key rows and query columns of the transposed scores.
 // ---------------------------------------------------------------------------
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(NT)
-    dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
+    dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               T* __restrict__ dk, T* __restrict__ dv, int t_q, int t_k, int d,
-               int causal) {
+               float* __restrict__ dk, float* __restrict__ dv, int t_q,
+               int t_k, int d, int causal) {
   using C = Cols<DP>;
   extern __shared__ __align__(16) float smem[];
   float* kt = smem;             // [DP][TS]
@@ -340,7 +325,7 @@ __global__ void __launch_bounds__(NT)
   float* ot = qt + DP * TS;     // [DP][TS]: dO
   float* qr = ot + DP * TS;     // [BQ][DP]
   float* orr = qr + BQ * DP;    // [BQ][DP]: dO
-  float* buf = orr + BQ * DP;   // [BQ][TS]: p^T, then ds^T, rounded to T
+  float* buf = orr + BQ * DP;   // [BQ][TS]: p^T, then ds^T
   float* ls = buf + BQ * TS;    // [BQ]: lse
   float* dl = ls + BQ;          // [BQ]: delta
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -352,8 +337,8 @@ __global__ void __launch_bounds__(NT)
   v += bh * t_k * d;
   lse += bh * t_q;
   delta += bh * t_q;
-  load_t<T, DP>(kt, k, k0, t_k, d);
-  load_t<T, DP>(vt, v, k0, t_k, d);
+  load_t<DP>(kt, k, k0, t_k, d);
+  load_t<DP>(vt, v, k0, t_k, d);
 
   float dk_acc[4][C::NC], dv_acc[4][C::NC];
 #pragma unroll
@@ -363,10 +348,10 @@ __global__ void __launch_bounds__(NT)
   // under causality, query tiles wholly before this key tile see none of it
   for (int q0 = causal ? k0 : 0; q0 < t_q; q0 += BQ) {
     __syncthreads();
-    load_t<T, DP>(qt, q, q0, t_q, d);
-    load_t<T, DP>(ot, dout, q0, t_q, d);
-    load_r<T, DP>(qr, q, q0, t_q, d);
-    load_r<T, DP>(orr, dout, q0, t_q, d);
+    load_t<DP>(qt, q, q0, t_q, d);
+    load_t<DP>(ot, dout, q0, t_q, d);
+    load_r<DP>(qr, q, q0, t_q, d);
+    load_r<DP>(orr, dout, q0, t_q, d);
     for (int i = threadIdx.x; i < BQ; i += NT) {
       ls[i] = q0 + i < t_q ? lse[q0 + i] : 0.f;
       dl[i] = q0 + i < t_q ? delta[q0 + i] : 0.f;
@@ -385,7 +370,7 @@ __global__ void __launch_bounds__(NT)
             kpos < t_k && qpos < t_q && !(causal && kpos > qpos);
         const float p = valid ? expf(s[i][j] - ls[c]) : 0.f;
         s[i][j] = p * (dov[i][j] - dl[c]);  // ds
-        buf[c * TS + ty * 4 + i] = round_to<T>(p);
+        buf[c * TS + ty * 4 + i] = p;
       }
     }
     __syncthreads();
@@ -395,12 +380,12 @@ __global__ void __launch_bounds__(NT)
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        buf[(tx * 4 + j) * TS + ty * 4 + i] = round_to<T>(s[i][j]);
+        buf[(tx * 4 + j) * TS + ty * 4 + i] = s[i][j];
     __syncthreads();
     mm_tr<DP>(dk_acc, buf, qr, ty, tx);
   }
-  store_rows<T, DP>(dk + bh * t_k * d, dk_acc, nullptr, k0, t_k, d, ty, tx);
-  store_rows<T, DP>(dv + bh * t_k * d, dv_acc, nullptr, k0, t_k, d, ty, tx);
+  store_rows<DP>(dk + bh * t_k * d, dk_acc, nullptr, k0, t_k, d, ty, tx);
+  store_rows<DP>(dv + bh * t_k * d, dv_acc, nullptr, k0, t_k, d, ty, tx);
 }
 
 // ---------------------------------------------------------------------------
@@ -413,71 +398,61 @@ int prepare(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int DP>
+template <int DP>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                void* lse, int bh, int t_q, int t_k, int d, int causal,
                cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * DP * TS + BK * DP + BK * TS);
-  if (int e = prepare(fwd_kernel<T, DP>, smem)) return e;
+  if (int e = prepare(fwd_kernel<DP>, smem)) return e;
   const dim3 grid((t_q + BQ - 1) / BQ, bh);
-  fwd_kernel<T, DP><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse, t_q, t_k,
-      d, causal);
+  fwd_kernel<DP><<<grid, NT, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out,
+      (float*)lse, t_q, t_k, d, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <int DP>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int t_q,
               int t_k, int d, int causal, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (4 * DP * TS + BK * DP + BK * TS);
-  if (int e = prepare(dq_kernel<T, DP>, smem)) return e;
+  if (int e = prepare(dq_kernel<DP>, smem)) return e;
   const dim3 grid((t_q + BQ - 1) / BQ, bh);
-  dq_kernel<T, DP><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dq, t_q, t_k, d, causal);
+  dq_kernel<DP><<<grid, NT, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)dq, t_q, t_k, d,
+      causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <int DP>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                int bh, int t_q, int t_k, int d, int causal,
                cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (4 * DP * TS + 2 * BQ * DP + BQ * TS + 2 * BQ);
-  if (int e = prepare(dkv_kernel<T, DP>, smem)) return e;
+  if (int e = prepare(dkv_kernel<DP>, smem)) return e;
   const dim3 grid((t_k + BK - 1) / BK, bh);
-  dkv_kernel<T, DP><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, t_q, t_k, d,
-      causal);
+  dkv_kernel<DP><<<grid, NT, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, t_q,
+      t_k, d, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The head dimension d (<= 128) picks the padded tile width DP in
-// {32, 64, 128} for the storage type T.
-#define FLASH_DISPATCH_T(T, FN, ...)                                   \
-  do {                                                                 \
-    if (d < 1 || d > 128) return (int)cudaErrorInvalidValue;           \
-    if (d <= 32) return FN<T, 32>(__VA_ARGS__);                        \
-    if (d <= 64) return FN<T, 64>(__VA_ARGS__);                        \
-    return FN<T, 128>(__VA_ARGS__);                                    \
-  } while (0)
-
-// dtype is kF32 or kBF16 (the forward); the backward takes kF32 only.
-#define FLASH_DISPATCH(FN, ...)                                        \
-  do {                                                                 \
-    if (dtype == kF32) FLASH_DISPATCH_T(float, FN, __VA_ARGS__);       \
-    if (dtype == kBF16) FLASH_DISPATCH_T(__nv_bfloat16, FN, __VA_ARGS__); \
-    return (int)cudaErrorInvalidValue;                                 \
-  } while (0)
+// dtype must be kF32 (bfloat16 runs in flash_attention_sm90.cu); the
+// head dimension d (<= 128) picks the padded tile width DP in {32, 64,
+// 128}.
 #define FLASH_DISPATCH_F32(FN, ...)                                    \
   do {                                                                 \
-    if (dtype == kF32) FLASH_DISPATCH_T(float, FN, __VA_ARGS__);       \
-    return (int)cudaErrorInvalidValue;                                 \
+    if (dtype != kF32 || d < 1 || d > 128)                             \
+      return (int)cudaErrorInvalidValue;                               \
+    if (d <= 32) return FN<32>(__VA_ARGS__);                           \
+    if (d <= 64) return FN<64>(__VA_ARGS__);                           \
+    return FN<128>(__VA_ARGS__);                                       \
   } while (0)
 
 // Each entry point returns cudaGetLastError() after its launch.
@@ -485,8 +460,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
                                    int bh, int t_q, int t_k, int d,
                                    int causal, int dtype, void* stream) {
-  FLASH_DISPATCH(launch_fwd, q, k, v, out, lse, bh, t_q, t_k, d, causal,
-                 (cudaStream_t)stream);
+  FLASH_DISPATCH_F32(launch_fwd, q, k, v, out, lse, bh, t_q, t_k, d, causal,
+                     (cudaStream_t)stream);
 }
 
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,

@@ -1,16 +1,18 @@
-// K4b/K4c for bfloat16 on Hopper's tensor cores (sm_90a): the backward of
-// flash attention, with every product a warpgroup `wgmma` on bf16 tiles
-// in shared memory, accumulating in float32.
+// K4a/K4b/K4c for bfloat16 on Hopper's tensor cores (sm_90a): flash
+// attention forward and backward, with every product a warpgroup `wgmma`
+// on bf16 tiles in shared memory, accumulating in float32.
 //
 // Replaces the TPU kernels of audio_transformers_tpu/ops/attention.py:
+//   flash_attention_fwd      <- _fwd_kernel     (attention.py:42)
 //   flash_attention_bwd_dq   <- _bwd_dq_kernel  (attention.py:147)
 //   flash_attention_bwd_dkv  <- _bwd_dkv_kernel (attention.py:187)
 // for bfloat16 operands, the training path's dtype. float32 keeps the FMA
 // kernels of flash_attention.cu, its parity route; ops/attention.py picks
 // the source by dtype. The C signatures are those of flash_attention.cu.
 //
-// Layout: q and dO (BH, Tq, d), k and v (BH, Tk, d), row-major bf16; lse
-// and delta (BH, Tq) float32; the softmax scale is already folded into q.
+// Layout: q and dO (BH, Tq, d), k and v (BH, Tk, d), row-major bf16; out
+// like q; lse and delta (BH, Tq) float32; the softmax scale is already
+// folded into q.
 //
 // Shared tiles. A tile of R rows and DP (padded head dim) columns is kept
 // in wgmma's no-swizzle "core matrix" order: 16-byte chunk i holds the 8
@@ -25,10 +27,10 @@
 // kStages tiles so that the next tile loads while this one computes.
 //
 // Numbers: a bf16 x bf16 product is exact in float32, and p and ds are
-// rounded to bf16 exactly where the reference rounds them (p before dV,
-// ds before dQ and dK), so only the order of the float32 sums differs.
-// Every output tile belongs to one block: no atomics, and two launches
-// give equal bits.
+// rounded to bf16 exactly where the reference rounds them (p before P.V
+// against the running maximum and before dV, ds before dQ and dK), so
+// only the order of the float32 sums differs. Every output tile belongs
+// to one block: no atomics, and two launches give equal bits.
 
 #include <type_traits>
 
@@ -39,6 +41,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 constexpr int kStages = 3;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegInf = -3.4028234663852886e38f;  // finfo(float32).min
 
 // ---------------------------------------------------------------------------
 // PTX helpers
@@ -386,10 +389,164 @@ __device__ __forceinline__ void zero_acc(typename Out<DP>::Acc& acc) {
     for (int i = 0; i < Out<DP>::NW / 2; ++i) acc[h][i] = 0.f;
 }
 
-// Both kernels run two warpgroups (of 64 rows each) per block, so that
-// each streamed tile feeds two warpgroups' products. On the H100 both ran
-// faster so than with one warpgroup per block.
+// The kernels run two warpgroups (of 64 rows each) per block, so that
+// each streamed tile feeds two warpgroups' products. On the H100 both
+// backward kernels ran faster so than with one warpgroup per block.
 constexpr int kThreads = 256;
+
+// ---------------------------------------------------------------------------
+// K4a: out and lse. Replaces _fwd_kernel (attention.py:42).
+//
+// Bound on the H100: the tensor cores. Two products (S, P.V) of
+// 2 * Tq * Tk * d flops: 55.3 GFLOP at the whisper-tiny encoder shape
+// (BH = 96, T = 1500, d = 64), 0.056 ms at 989 TFLOP/s, against about
+// 0.6 MB of q, k, v and out per head.
+//
+// Design: one block per (128-query tile, bh), two warpgroups of 64 query
+// rows. The Q tile stays in shared memory for the block's life; the block
+// loops over 64-row key tiles of K and V, three in flight. Per tile each
+// warpgroup computes S = Q K^T by wgmma from shared memory, then in
+// registers the row maximum (reduced over the 4 threads that share a
+// row), alpha = exp(m - m_new), p = exp(s - m_new) (masked only on edge
+// and diagonal tiles) and each thread's share of the row sum of p. O is
+// rescaled by alpha in registers, p is rounded to bf16 A fragments, and
+// O += P V runs with B the V tile read MN-major, as dQ = dS K in K4b. At
+// the end out = O / max(l, 1e-30) and lse = m + log(max(l, 1e-30)).
+// Under causality the key tiles wholly after a warpgroup's rows are
+// skipped, and a warpgroup whose rows all lie past Tq computes nothing.
+// ---------------------------------------------------------------------------
+
+template <int DP>
+struct Fwd {
+  static constexpr int BQ = 128;  // query rows per block
+  static constexpr int BK = 64;   // key rows per stage
+  static constexpr int NT = kThreads;
+  static constexpr size_t smem =
+      sizeof(bf16) * (BQ * DP + kStages * 2 * BK * DP);
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads)
+    fwd_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, bf16* __restrict__ out,
+             float* __restrict__ lse, int t_q, int t_k, int d, int causal,
+             int vec) {
+  using C = Fwd<DP>;
+  constexpr int BK = C::BK;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // [BQ][DP]
+  bf16* kst = qs + C::BQ * DP;               // [kStages][BK][DP]
+  bf16* vst = kst + kStages * BK * DP;       // [kStages][BK][DP]
+  const int wg = threadIdx.x >> 7, w = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * C::BQ;
+  const size_t bh = blockIdx.y;
+  q += bh * t_q * d;
+  k += bh * t_k * d;
+  v += bh * t_k * d;
+
+  load_tile<C::BQ, DP, C::NT>(qs, q, q0, t_q, d, vec);
+  const int k_end = causal ? min(t_k, q0 + C::BQ) : t_k;
+  const int n_tiles = (k_end + BK - 1) / BK;
+  auto load_stage = [&](int t) {
+    const int s = t % kStages;
+    load_tile<BK, DP, C::NT>(kst + s * BK * DP, k, t * BK, t_k, d, vec);
+    load_tile<BK, DP, C::NT>(vst + s * BK * DP, v, t * BK, t_k, d, vec);
+  };
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) load_stage(t);
+    cp_async_commit();
+  }
+
+  const int qw0 = q0 + wg * 64;  // this warpgroup's 64 query rows
+  const bf16* qw = qs + wg * 64 * DP;
+  const int row = qw0 + 16 * w + (lane >> 2);  // and row + 8
+  // the keys this warpgroup's rows can see end here; rows past Tq see none
+  const int wg_end = qw0 >= t_q ? 0 : causal ? min(k_end, qw0 + 64) : k_end;
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  typename Out<DP>::Acc o_acc;
+  zero_acc<DP>(o_acc);
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();
+    fence_async_shared();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    if (t + kStages - 1 < n_tiles) load_stage(t + kStages - 1);
+    cp_async_commit();
+    const int s = t % kStages, k0 = t * BK;
+    if (k0 >= wg_end) continue;  // uniform over the warpgroup
+    const bf16* kt = kst + s * BK * DP;
+    const bf16* vt = vst + s * BK * DP;
+
+    float sc[BK / 2];  // S, then P
+    wgmma_fence();
+    gemm_ss<BK, DP>(sc, qw, kt);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    const bool inner = k0 + BK <= t_k && !(causal && k0 + BK - 1 > qw0);
+    if (!inner) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int qpos = row + 8 * ((i >> 1) & 1);
+        const int kpos = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        if (kpos >= t_k || (causal && kpos > qpos)) sc[i] = kNegInf;
+      }
+    }
+    float m_new[2], alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = m_r[h];
+#pragma unroll
+      for (int i = 2 * h; i < BK / 2; i += 4) mx = fmaxf(mx, fmaxf(sc[i], sc[i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      m_new[h] = mx;
+      alpha[h] = exp2f((m_r[h] - mx) * kLog2e);
+      m_r[h] = mx;
+    }
+    // exp(s - m) as exp2(s log2e - m log2e): one FFMA per score
+    const float ml[2] = {m_new[0] * kLog2e, m_new[1] * kLog2e};
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      sc[i] = exp2f(fmaf(sc[i], kLog2e, -ml[h]));
+      psum[h] += sc[i];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l_r[h] = l_r[h] * alpha[h] + psum[h];
+#pragma unroll
+    for (int hh = 0; hh < Out<DP>::NH; ++hh)
+#pragma unroll
+      for (int i = 0; i < Out<DP>::NW / 2; ++i) o_acc[hh][i] *= alpha[(i >> 1) & 1];
+    uint32_t pf[BK / 16][4];  // p rounded to bf16 against the running max
+    to_frags<BK>(pf, sc);
+    wgmma_fence();
+    gemm_rs<BK, DP>(o_acc, pf, vt);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o_acc);
+    fence_regs(pf);
+  }
+  cp_async_wait<0>();
+  if (qw0 >= t_q) return;
+  float den[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_r[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    den[h] = fmaxf(l, 1e-30f);
+    const int r = row + 8 * h;
+    if ((lane & 3) == 0 && r < t_q) lse[bh * t_q + r] = m_r[h] + logf(den[h]);
+  }
+#pragma unroll
+  for (int hh = 0; hh < Out<DP>::NH; ++hh)
+#pragma unroll
+    for (int i = 0; i < Out<DP>::NW / 2; ++i) o_acc[hh][i] /= den[(i >> 1) & 1];
+  store_out<DP>(out + bh * t_q * d, o_acc, qw0, t_q, d, vec);
+}
 
 // ---------------------------------------------------------------------------
 // K4c: dk and dv. Replaces _bwd_dkv_kernel (attention.py:187).
@@ -676,12 +833,30 @@ int prepare(K kernel, size_t smem) {
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 template <int DP>
+int launch_fwd(const void* q, const void* k, const void* v, void* out,
+               void* lse, int bh, int t_q, int t_k, int d, int causal,
+               cudaStream_t stream) {
+  using C = Fwd<DP>;
+  auto kernel = fwd_sm90<DP>;
+  static const int attr = prepare(kernel, C::smem);  // once
+  if (attr != 0) return attr;
+  const int vec = d % 8 == 0 && aligned16(q) && aligned16(k) &&
+                  aligned16(v) && aligned16(out);
+  const dim3 grid((t_q + C::BQ - 1) / C::BQ, bh);
+  kernel<<<grid, C::NT, C::smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
+      (float*)lse, t_q, t_k, d, causal, vec);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int t_q,
               int t_k, int d, int causal, cudaStream_t stream) {
   using C = Dq<DP>;
   auto kernel = dq_sm90<DP>;
-  if (int e = prepare(kernel, C::smem)) return e;
+  static const int attr = prepare(kernel, C::smem);  // once
+  if (attr != 0) return attr;
   const int vec = d % 8 == 0 && aligned16(q) && aligned16(k) &&
                   aligned16(v) && aligned16(dout) && aligned16(dq);
   const dim3 grid((t_q + C::BQ - 1) / C::BQ, bh);
@@ -699,7 +874,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                cudaStream_t stream) {
   using C = Dkv<DP>;
   auto kernel = dkv_sm90<DP>;
-  if (int e = prepare(kernel, C::smem)) return e;
+  static const int attr = prepare(kernel, C::smem);  // once
+  if (attr != 0) return attr;
   const int vec = d % 8 == 0 && aligned16(q) && aligned16(k) &&
                   aligned16(v) && aligned16(dout) && aligned16(dk) &&
                   aligned16(dv);
@@ -726,6 +902,14 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 // The signatures of flash_attention.cu's entry points; each returns
 // cudaGetLastError() after its launch.
+extern "C" int flash_attention_fwd(const void* q, const void* k,
+                                   const void* v, void* out, void* lse,
+                                   int bh, int t_q, int t_k, int d,
+                                   int causal, int dtype, void* stream) {
+  SM90_DISPATCH(launch_fwd, q, k, v, out, lse, bh, t_q, t_k, d, causal,
+                (cudaStream_t)stream);
+}
+
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,

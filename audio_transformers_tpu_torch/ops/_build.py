@@ -36,7 +36,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 KERNEL_SOURCES = ("decode_attention", "decode_logits", "mel",
-                  "flash_attention", "flash_attention_bwd_sm90", "permute")
+                  "flash_attention", "flash_attention_sm90", "permute")
 
 
 @dataclass

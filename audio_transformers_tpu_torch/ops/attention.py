@@ -9,15 +9,14 @@ Replaces the TPU kernels of `audio_transformers_tpu/ops/attention.py`:
   K4c `flash_attention_bwd_dkv`  <- `_bwd_dkv_kernel`: dv = p^T dO,
       dk = ds^T q.
 
-The backward has two routes, chosen by dtype and by nothing else: bfloat16
-(the training path) runs K4b/K4c on the tensor cores, `wgmma` kernels in
-`csrc/flash_attention_bwd_sm90.cu`; float32 runs the float32 FMA kernels
-of `csrc/flash_attention.cu`, which hold the 2e-5 parity with the
-reference. The forward K4a is `csrc/flash_attention.cu` in both dtypes.
-Each source says what bounds its kernels on the H100 and how they are
-laid out. `flash_attention` joins them in one `torch.autograd.Function`
-that saves (q, k, v, out, lse) instead of the probabilities, so residual
-memory is O(B*H*Tq), as in the reference. The softmax scale is folded into
+Each kernel has two routes, chosen by dtype and by nothing else
+(`SOURCE`): bfloat16 (the training path) runs K4a/K4b/K4c on the tensor
+cores, `wgmma` kernels in `csrc/flash_attention_sm90.cu`; float32 runs
+the float32 FMA kernels of `csrc/flash_attention.cu`, which hold the 2e-5
+parity with the reference. Each source says what bounds its kernels on
+the H100 and how they are laid out. `flash_attention` joins them in one
+`torch.autograd.Function` that saves (q, k, v, out, lse) instead of the
+probabilities, so residual memory is O(B*H*Tq), as in the reference. The softmax scale is folded into
 q outside the Function, in q's dtype, and autograd chains it.
 
 Every kernel has a plain PyTorch version beside it, with the same
@@ -48,10 +47,10 @@ _TAIL = [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _FWD_ARGS = [ctypes.c_void_p] * 5 + _TAIL
 _DQ_ARGS = [ctypes.c_void_p] * 7 + _TAIL
 _DKV_ARGS = [ctypes.c_void_p] * 8 + _TAIL
-# the source of the backward kernels, by dtype (same C signatures); read
-# only, so that no importer can reroute the backward
-BWD_SOURCE = MappingProxyType({torch.float32: "flash_attention",
-                               torch.bfloat16: "flash_attention_bwd_sm90"})
+# the source of all three kernels, by dtype (same C signatures); read
+# only, so that no importer can reroute them
+SOURCE = MappingProxyType({torch.float32: "flash_attention",
+                           torch.bfloat16: "flash_attention_sm90"})
 
 
 # ---------------------------------------------------------------------------
@@ -178,14 +177,14 @@ def _dims(q, k, causal):
 
 def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor,
                         causal: bool) -> Tuple[Tensor, Tensor]:
-    """K4a: (out, lse) for q (BH, Tq, d) (scaled), k and v (BH, Tk, d)."""
+    """K4a: (out, lse) for q (BH, Tq, d) (scaled), k and v (BH, Tk, d)
+    (the source by `SOURCE`)."""
     if not q.is_cuda:
         return flash_attention_fwd_reference(q, k, v, causal)
     _check(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    fn = _build.function("flash_attention", "flash_attention_fwd",
-                         _FWD_ARGS)
+    fn = _build.function(SOURCE[q.dtype], "flash_attention_fwd", _FWD_ARGS)
     rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
             _build.ptr(lse), *_dims(q, k, causal))
     _build.check(rc, "flash_attention_fwd")
@@ -196,14 +195,14 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor,
 def flash_attention_bwd_dq(q: Tensor, k: Tensor, v: Tensor, dout: Tensor,
                            lse: Tensor, delta: Tensor,
                            causal: bool) -> Tensor:
-    """K4b: dq (BH, Tq, d) in q's dtype (the source by `BWD_SOURCE`)."""
+    """K4b: dq (BH, Tq, d) in q's dtype (the source by `SOURCE`)."""
     if not q.is_cuda:
         return flash_attention_bwd_dq_reference(q, k, v, dout, lse, delta,
                                                 causal)
     _check(q, k, v, dout, lse, delta)
     _check_bwd(q, dout, lse, delta)
     dq = torch.empty_like(q)
-    fn = _build.function(BWD_SOURCE[q.dtype], "flash_attention_bwd_dq",
+    fn = _build.function(SOURCE[q.dtype], "flash_attention_bwd_dq",
                          _DQ_ARGS)
     rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(dout),
             _build.ptr(lse), _build.ptr(delta), _build.ptr(dq),
@@ -217,14 +216,14 @@ def flash_attention_bwd_dkv(q: Tensor, k: Tensor, v: Tensor, dout: Tensor,
                             lse: Tensor, delta: Tensor,
                             causal: bool) -> Tuple[Tensor, Tensor]:
     """K4c: (dk, dv), each (BH, Tk, d) in k's dtype (the source by
-    `BWD_SOURCE`)."""
+    `SOURCE`)."""
     if not q.is_cuda:
         return flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta,
                                                  causal)
     _check(q, k, v, dout, lse, delta)
     _check_bwd(q, dout, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _build.function(BWD_SOURCE[q.dtype], "flash_attention_bwd_dkv",
+    fn = _build.function(SOURCE[q.dtype], "flash_attention_bwd_dkv",
                          _DKV_ARGS)
     rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(dout),
             _build.ptr(lse), _build.ptr(delta), _build.ptr(dk),

@@ -8,11 +8,16 @@ built once per clip in the time-minor (B, H, hd, T) layout.
 Bound on the H100: device-memory bandwidth. Each call reads all of K and
 V once (whisper-tiny, T=1500, bf16: 384 KB per (b, h), 37 MB at B=16)
 and does 4 * hd FLOPs per key, far below the compute roofline. The kernel
-(`csrc/decode_attention.cu`) runs one block per (b, h); in the time-minor
-layout the 32 lanes of a warp read 32 consecutive keys of one channel, so
-both contractions are coalesced, and the scores never leave shared memory.
-With one block per (b, h) only B*H blocks are in flight (96 at B=16 on
-132 SMs): splitting T across blocks is the next step.
+(`csrc/decode_attention.cu`) is flash-decoding: `split_plan` cuts the
+keys of each (b, h) into chunks, so that even B=1 (6 heads) fills the
+card; one block per (chunk, b, h) streams its chunk of every channel
+through shared memory with 16-byte copies, two sub-tiles in flight, keeps
+an online softmax and leaves a partial (m, l, acc) in float32 scratch,
+and the last block of a (b, h) to finish merges the partials in split
+order, in the same launch. It finds out through a counter per (b, h) that
+the wrapper allocates once per device and stream, with the partials'
+scratch, and the merging block resets. No score row is held for all of T, so T is not bounded by shared
+memory.
 
 int8 mode folds the per-key `k_scale` into the logit row and the
 per-channel `v_scale` into the output row; q and the probabilities are
@@ -22,19 +27,65 @@ never quantized. int4 waits (it raises).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from audio_transformers_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_SMEM_LIMIT = 48 * 1024
-# q, k, v, k_scale, v_scale, out; bh, hd, t_len, t_valid; scale;
-# q dtype, kv dtype; stream
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+# q, k, v, k_scale, v_scale, out, part, count; bh, hd, t_len, t_valid,
+# chunk, splits; scale; q dtype, kv dtype; stream
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_MAX_HEAD_DIM = 128        # the block's ring of K and V sub-tiles
+_MAX_GRID_Y = 65535
+# a sub-tile is 16 lanes x 16 bytes of keys per channel row
+_SUB_TILE_BYTES = 16 * 16
+# the H100's 132 SMs, two blocks each
+_TARGET_BLOCKS = 2 * 132
+# floats per channel of the kernel's ring (2 stages x K and V x 17 16-byte
+# segments), in which the merge stages every split's hd + 2 floats at once
+_RING_FLOATS_PER_CHANNEL = 2 * 2 * 17 * 4
+# the scratch of each (device, stream): the split counters (int32, zero
+# between launches) and the partials (float32)
+_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(bh: int, t: int, itemsize: int, hd: int) -> Tuple[int, int]:
+    """(chunk, splits) of K1 for bh (b, h) rows of hd channels over t keys
+    of `itemsize` bytes: keys [i * chunk, (i + 1) * chunk) of every channel
+    go to split i < splits, the last one ragged. A chunk is a whole number
+    of the kernel's sub-tiles (256 bytes of keys per channel row); each row
+    gets about two blocks per SM of the H100 between its splits, or one
+    sub-tile per split where T is too short for that, and at most the
+    splits whose partials the merge stages at once (263 at hd = 64)."""
+    tile = _SUB_TILE_BYTES // itemsize
+    tiles = -(-t // tile)
+    cap = _RING_FLOATS_PER_CHANNEL * hd // (hd + 2)
+    per = max(1, tiles // -(-_TARGET_BLOCKS // bh), -(-tiles // cap))
+    chunk = per * tile
+    return chunk, -(-t // chunk)
+
+
+def _scratch(device: torch.device, stream: int, bh: int,
+             n_part: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(counters, partials) of (device, stream), with at least bh and
+    n_part entries: made once (the counters zeroed) and grown when a call
+    needs more. Launches on one stream run one after another, so they
+    share them; the kernel leaves the counters zero."""
+    key = (device.index, stream)
+    count, part = _SCRATCH.get(key, (None, None))
+    if count is None or count.numel() < bh:
+        count = torch.zeros(max(bh, 1024), dtype=torch.int32, device=device)
+    if part is None or part.numel() < n_part:
+        part = torch.empty(max(n_part, 1 << 16), dtype=torch.float32,
+                           device=device)
+    _SCRATCH[key] = (count, part)
+    return count, part
 
 
 def pack_int4(x: torch.Tensor) -> torch.Tensor:
@@ -94,15 +145,18 @@ def _check(q, k, v, k_scale, v_scale, t_valid):
                          "both float32")
     if not 0 < t_valid <= t:
         raise ValueError(f"t_valid {t_valid} outside (0, {t}]")
-    if 4 * (hd + 32 + t_valid) > _SMEM_LIMIT:
-        raise ValueError(f"T={t_valid} too long for the kernel's shared "
-                         "memory")
+    if not 0 < hd <= _MAX_HEAD_DIM or b * h > _MAX_GRID_Y \
+            or hd * t * k.element_size() >= 2 ** 31:
+        raise ValueError(f"head dim {hd}, B*H {b * h} or T {t} out of range")
     for name, x in (("q", q), ("k", k), ("v", v), ("k_scale", k_scale),
                     ("v_scale", v_scale)):
         if x is not None and (not x.is_cuda or x.device != q.device
                               or not x.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous tensor on "
                              f"{q.device}")
+    if (k.data_ptr() - v.data_ptr()) % 16:
+        raise ValueError("k and v must lie equally far from a 16-byte "
+                         "boundary")
 
 
 def decode_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -129,13 +183,17 @@ def decode_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, k_scale, v_scale, t_valid)
     b, h, hd = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    chunk, splits = split_plan(b * h, t_valid, k.element_size(), hd)
     out = torch.empty_like(q)
+    stream = _build.stream_ptr(q)
+    count, part = _scratch(q.device, stream.value, b * h,
+                           b * h * splits * (hd + 2))
     fn = _build.function("decode_attention", "decode_cross_attention",
                          _ARGTYPES)
     rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
             _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(out),
-            b * h, hd, t_len, t_valid, scale, _DTYPES[q.dtype],
-            _DTYPES[k.dtype], _build.stream_ptr(q))
+            _build.ptr(part), _build.ptr(count), b * h, hd, t_len, t_valid,
+            chunk, splits, scale, _DTYPES[q.dtype], _DTYPES[k.dtype], stream)
     _build.check(rc, "decode_cross_attention")
     _build.STATS["decode_cross_attention"].launches += 1
     return out

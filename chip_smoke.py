@@ -10,12 +10,15 @@ each raising on failure:
   2. build the hand-written CUDA kernels from csrc/ (nvcc, sm_90a), one
      nvcc per source, all started together;
   3. each serving kernel against its plain PyTorch version on the card at
-     the serving path's shapes (B in {4, 16}, T=1500, V=51865 padded to
-     52224, 30 s audio), with the tolerances below, and their times
-     (CUDA events, median of 20 after warm-up); for K1 also the time of
-     torch's scaled_dot_product_attention (SDPA) on the same bf16 q, K, V
-     (one query; K and V in SDPA's (B, H, T, hd) layout, and as transposed
-     views of the kernel's time-minor tensors);
+     the serving path's shapes (B in {4, 16}, and for K1 also B = 1;
+     T=1500, V=51865 padded to 52224, 30 s audio), with the tolerances
+     below, and their times (CUDA events, median of 20 after warm-up); for
+     K1 two launches bit-equal, the time of torch's
+     scaled_dot_product_attention (SDPA) on the same bf16 q, K, V (one
+     query; K and V in SDPA's (B, H, T, hd) layout, and as transposed
+     views of the kernel's time-minor tensors), and the device time of K1
+     and of SDPA on (B, H, T, hd) K/V (torch.profiler: at about 0.01 ms a
+     call's event time is mostly host time);
   4. correctness on a small input: the port's pipeline at the test config
      in float32 on the card (kernels) equals the same pipeline on the CPU
      (plain versions);
@@ -28,12 +31,13 @@ each raising on failure:
      the training shapes of whisper-tiny at batch 16 (B*H = 96, d = 64:
      encoder self-attention 1500 x 1500, decoder causal self-attention
      31 x 31, cross-attention 31 x 1500) and two ragged ones (65 x 65
-     causal, 129 x 1500), float32 and bfloat16, and their times in
-     bfloat16, beside SDPA's forward and its backward
-     (torch.autograd.grad with retain_graph) on the same inputs, with the
-     backend SDPA chose; in bfloat16 K4b/K4c are the tensor-core kernels
-     of csrc/flash_attention_bwd_sm90.cu, in float32 the FMA kernels of
-     csrc/flash_attention.cu;
+     causal, 129 x 1500), float32 and bfloat16, two launches of each
+     bit-equal, and their times in bfloat16, beside SDPA's forward and its
+     backward (torch.autograd.grad with retain_graph) on the same inputs,
+     with the backend SDPA chose, and the kernels' device time
+     (torch.profiler); in bfloat16 K4a/K4b/K4c are the tensor-core
+     kernels of csrc/flash_attention_sm90.cu, in float32 the FMA kernels
+     of csrc/flash_attention.cu;
   8. correctness of one train step on a small input: the test config in
      float32, kernels on the card against plain versions on the CPU;
   9. the training path: the train_whisper CLI on whisper-tiny (bfloat16,
@@ -94,8 +98,10 @@ rate of their type, 989 TFLOP/s bf16 or 67 TFLOP/s float32, computed from
 this run's inputs) and `bound_by`, and `library_ms`, the time of one
 PyTorch call computing the same function where there is one (SDPA for
 K1, on K/V in its own layout, and for K4; its backward computes K4b and
-K4c together), else null. The
-last line is {"ok": true, "device": {...}}. Nothing of JAX is imported.
+K4c together), else null; K1's entry also has `device_ms` and
+`library_device_ms` (profiler kernel time of K1 and of that SDPA call).
+The last line is {"ok": true, "device": {...}}. Nothing of JAX is
+imported.
 """
 
 from __future__ import annotations
@@ -131,9 +137,9 @@ SOURCES = {
     "decode_cross_attention": "audio_transformers_tpu_torch/csrc/decode_attention.cu",
     "fused_greedy_step": "audio_transformers_tpu_torch/csrc/decode_logits.cu",
     "log_mel": "audio_transformers_tpu_torch/csrc/mel.cu",
-    "flash_attention_fwd": "audio_transformers_tpu_torch/csrc/flash_attention.cu",
-    "flash_attention_bwd_dq": "audio_transformers_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
-    "flash_attention_bwd_dkv": "audio_transformers_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
+    "flash_attention_fwd": "audio_transformers_tpu_torch/csrc/flash_attention_sm90.cu",
+    "flash_attention_bwd_dq": "audio_transformers_tpu_torch/csrc/flash_attention_sm90.cu",
+    "flash_attention_bwd_dkv": "audio_transformers_tpu_torch/csrc/flash_attention_sm90.cu",
     "permute_rows": "audio_transformers_tpu_torch/csrc/permute.cu",
 }
 SERVING = ("decode_cross_attention", "fused_greedy_step", "log_mel")
@@ -246,7 +252,7 @@ def check_k1(torch, da, gen, results):
     dev = "cuda"
     h, hd, t = 6, 64, 1500
     worst = 0.0
-    for b in (4, 16):
+    for b in (1, 4, 16):
         q = torch.randn((b, h, hd), generator=gen, device=dev)
         k = torch.randn((b, h, hd, t), generator=gen, device=dev)
         v = torch.randn((b, h, hd, t), generator=gen, device=dev)
@@ -263,11 +269,15 @@ def check_k1(torch, da, gen, results):
                   K1_TOL_F32)]
         for name, qq, kk, vv, kw, tol in cases:
             got = da.decode_cross_attention(qq, kk, vv, **kw)
+            got2 = da.decode_cross_attention(qq, kk, vv, **kw)
             want = da.decode_cross_attention_reference(qq, kk, vv, **kw)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
-            log(f"K1 B={b} {name:10s} max_abs_err={err:.3e} (tol {tol})")
+            log(f"K1 B={b} {name:10s} max_abs_err={err:.3e} (tol {tol}); "
+                f"two launches bit-equal")
             require(err <= tol, f"K1 {name} B={b}: {err} > {tol}")
+            require(torch.equal(got, got2),
+                    f"K1 {name} B={b}: two launches differ")
             if name != "f32":
                 worst = max(worst, err)
         # the serving path's operands: bf16 q, bf16 K/V
@@ -296,16 +306,25 @@ def check_k1(torch, da, gen, results):
                     f"SDPA {layout} B={b}: {lib_err} > {K1_TOL_BF16}")
             lib[layout] = time_ms(sdpa)
             backend[layout] = sdpa_backend(sdpa)
+            if layout == "contiguous":
+                lib_dev = device_ms(sdpa)
+        # at about 0.01 ms a call's event time is mostly the Python
+        # wrapper's; the profiler's kernel time is the card's own
+        dev_ms = device_ms(lambda: da.decode_cross_attention(qb, kb, vb))
         bnd = bound(nbytes(qb, kb, vb, qb), 4 * b * h * t * hd, BF16_FLOPS)
         log(f"K1 B={b} bf16 time: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             + ", ".join(f"SDPA {layout} {lib[layout]:.4f} ms "
                         f"({backend[layout]})" for layout in lib)
-            + f"; bound {bnd[0]:.4f} ms ({bnd[1]})")
+            + f"; device time: kernel {dev_ms:.4f} ms, SDPA contiguous "
+            f"{lib_dev:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}, "
+            f"{100 * bnd[0] / dev_ms:.1f}% of it by device time); split "
+            f"plan {da.split_plan(b * h, t, 2, hd)}")
         results.setdefault(b, {})["decode_cross_attention"] = {
             "ms": ms, "plain_ms": plain, "library_ms": lib["contiguous"],
             "library": "scaled_dot_product_attention, (B, H, T, hd) K/V "
                        f"({backend['contiguous']})",
             "library_time_minor_ms": lib["time-minor"],
+            "device_ms": dev_ms, "library_device_ms": lib_dev,
             "bound_ms": bnd[0], "bound_by": bnd[1]}
     return worst
 
@@ -591,6 +610,7 @@ def check_k4(torch, att, gen, times):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, g = (x.to(dtype) for x in (q32, k32, v32, g32))
             out, lse = att.flash_attention_fwd(q, k, v, causal)
+            out2, lse2 = att.flash_attention_fwd(q, k, v, causal)
             p_out, p_lse = att.flash_attention_fwd_reference(q, k, v, causal)
             # both backward versions run from the plain forward's residuals
             delta = (g.float() * p_out.float()).sum(-1)
@@ -602,6 +622,8 @@ def check_k4(torch, att, gen, times):
             p_dq = att.flash_attention_bwd_dq_reference(*bwd)
             p_dk, p_dv = att.flash_attention_bwd_dkv_reference(*bwd)
             torch.cuda.synchronize()
+            require(torch.equal(out, out2) and torch.equal(lse, lse2),
+                    f"K4a {name} {dtype}: two launches differ")
             require(torch.equal(dq, dq2) and torch.equal(dk, dk2)
                     and torch.equal(dv, dv2),
                     f"K4b/c {name} {dtype}: two launches differ")
@@ -646,17 +668,24 @@ def check_k4(torch, att, gen, times):
                       BF16_FLOPS))}
         lib_fwd, lib_bwd, fwd_op, bwd_op = _time_sdpa(torch, q, k, v, g,
                                                       causal)
+        # the kernels' own time (profiler), beside the per-call event time
+        dev = {"flash_attention_fwd": device_ms(
+                   lambda: att.flash_attention_fwd(q, k, v, causal)),
+               "flash_attention_bwd_dq": device_ms(
+                   lambda: att.flash_attention_bwd_dq(*bwd)),
+               "flash_attention_bwd_dkv": device_ms(
+                   lambda: att.flash_attention_bwd_dkv(*bwd))}
         times[name] = {
-            kern: {"ms": a, "plain_ms": b, "bound_ms": bnd[0],
-                   "bound_by": bnd[1],
+            kern: {"ms": a, "plain_ms": b, "device_ms": dev[kern],
+                   "bound_ms": bnd[0], "bound_by": bnd[1],
                    "library_ms": lib_fwd if kern.endswith("fwd") else lib_bwd,
                    "library": "scaled_dot_product_attention " + (
                        f"forward ({fwd_op})" if kern.endswith("fwd") else
                        f"backward, dq, dk and dv together ({bwd_op})")}
             for kern, (a, b, bnd) in t.items()}
-        log(f"K4 {name} bf16 time (kernel / plain / bound ms): " + ", ".join(
-            f"{n[16:]} {a:.4f} / {b:.4f} / {bnd[0]:.4f}"
-            for n, (a, b, bnd) in t.items())
+        log(f"K4 {name} bf16 time (kernel / device / plain / bound ms): "
+            + ", ".join(f"{n[16:]} {a:.4f} / {dev[n]:.4f} / {b:.4f} / "
+                        f"{bnd[0]:.4f}" for n, (a, b, bnd) in t.items())
             + f"; SDPA forward {lib_fwd:.4f} ms ({fwd_op}), backward (dq, "
             f"dk, dv) {lib_bwd:.4f} ms ({bwd_op})")
     return worst
@@ -1112,10 +1141,10 @@ def main() -> int:
     del pipe
     torch.cuda.empty_cache()
 
-    # 7. K4 against its plain versions at the training shapes; the bf16
-    # backward (the training path's) is the tensor-core source
-    require(att.BWD_SOURCE[torch.bfloat16] == "flash_attention_bwd_sm90",
-            "bf16 K4b/K4c route to csrc/flash_attention_bwd_sm90.cu")
+    # 7. K4 against its plain versions at the training shapes; in bf16 (the
+    # training path's dtype) all three run from the tensor-core source
+    require(att.SOURCE[torch.bfloat16] == "flash_attention_sm90",
+            "bf16 K4a/K4b/K4c route to csrc/flash_attention_sm90.cu")
     k4_times = {}
     err.update(check_k4(torch, att, gen, k4_times))
 
@@ -1163,7 +1192,8 @@ def main() -> int:
         entry = {"name": name, "route": "cuda", "source": SOURCES[name],
                  "replaces": REPLACES[name], "launches": stats[name][0],
                  "max_abs_err": err[name], **t4,
-                 **{f"{k}_b16": v for k, v in t16.items()}}
+                 **{f"{k}_b16": v for k, v in t16.items()},
+                 **{f"{k}_b1": v for k, v in times[1].get(name, {}).items()}}
         if name in train_launches:
             entry["launches_training"] = train_launches[name]
         kernels.append(entry)

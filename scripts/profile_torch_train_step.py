@@ -34,10 +34,10 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 
-def busy_ms(events) -> float:
-    """The union of [start, end) intervals, in ms."""
+def busy_ms(intervals) -> float:
+    """The union of [start, end) intervals (us), in ms."""
     total, end = 0.0, None
-    for s, e in sorted(events):
+    for s, e in sorted(intervals):
         if end is None or s > end:
             total += e - s
             end = e
@@ -47,8 +47,29 @@ def busy_ms(events) -> float:
     return total / 1e3
 
 
-def profile_path(torch, chip_smoke, port, params, attn, batch_size, steps):
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+def device_kernels(prof, per=1, top=12):
+    """The CUDA kernels a torch.profiler run recorded: (launches, busy ms,
+    {name: [ms, launches]}, the `top` names by ms), each divided by `per`;
+    busy is the union of the kernels' intervals."""
     from torch.autograd import DeviceType
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = defaultdict(lambda: [0.0, 0.0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3 / per
+        by_name[e.name][1] += 1 / per
+    busy = busy_ms([(e.time_range.start, e.time_range.end) for e in kernels])
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return len(kernels) / per, busy / per, by_name, ranked
+
+
+def profile_path(torch, chip_smoke, port, params, attn, batch_size, steps):
     from torch.profiler import ProfilerActivity, profile
 
     from audio_transformers_tpu_torch.train.whisper_emotion import \
@@ -78,22 +99,16 @@ def profile_path(torch, chip_smoke, port, params, attn, batch_size, steps):
             step(batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = defaultdict(lambda: [0.0, 0])
-    for e in kernels:
-        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3 / steps
-        by_name[e.name][1] += 1
-    busy = busy_ms([(e.time_range.start, e.time_range.end) for e in kernels])
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    launches, busy, _, top = device_kernels(prof, per=steps)
     del step
     torch.cuda.empty_cache()
     return {"attn": attn, "step_ms": step_ms, "enqueue_ms": enqueue_ms,
             "profiled_wall_ms_per_step": wall / steps,
-            "device_busy_ms_per_step": busy / steps,
-            "idle_share": 1.0 - busy / wall,
-            "launches_per_step": len(kernels) / steps,
+            "device_busy_ms_per_step": busy,
+            "idle_share": 1.0 - busy * steps / wall,
+            "launches_per_step": launches,
             "top_kernels_ms_per_step": [
-                {"name": n[:90], "ms": ms, "launches": c / steps}
+                {"name": n[:90], "ms": ms, "launches": c}
                 for n, (ms, c) in top]}
 
 
@@ -112,9 +127,7 @@ def main(argv=None) -> int:
     from audio_transformers_tpu_torch.core.params import init
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    card = card_name()
     print(card, flush=True)
     params = init(port.EmotionWhisperConfig(num_emotion_classes=9),
                   torch.Generator().manual_seed(0))

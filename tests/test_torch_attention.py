@@ -184,11 +184,13 @@ def test_mha_flash_path_rejects_a_mask():
 
 
 def test_backward_source_is_fixed_by_dtype():
-    # bf16 takes the tensor-core kernels, float32 the FMA kernels, and no
-    # importer can reroute either
-    assert dict(att.BWD_SOURCE) == {
+    # one mapping routes all three kernels, forward and backward: bf16 to
+    # the tensor-core kernels, float32 to the FMA kernels, and no importer
+    # can reroute either
+    assert dict(att.SOURCE) == {
         torch.float32: "flash_attention",
-        torch.bfloat16: "flash_attention_bwd_sm90"}
+        torch.bfloat16: "flash_attention_sm90"}
     with pytest.raises(TypeError):
-        att.BWD_SOURCE[torch.bfloat16] = "flash_attention"
-    assert set(att.BWD_SOURCE.values()) <= set(_build.KERNEL_SOURCES)
+        att.SOURCE[torch.bfloat16] = "flash_attention"
+    assert set(att.SOURCE.values()) <= set(_build.KERNEL_SOURCES)
+    assert not hasattr(att, "BWD_SOURCE")

@@ -101,6 +101,71 @@ def test_k1_matches_plain(cuda, shape, t_valid, dtype, quant):
     assert err <= K1_TOL[dtype], err
 
 
+_K1_MODES = (  # (q dtype, K/V dtype)
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16), (torch.float32, torch.int8),
+    (torch.bfloat16, torch.int8))
+
+
+def _k1_operands(cuda, b, t, q_dtype, kv_dtype, g, h=6, hd=64):
+    q = torch.randn((b, h, hd), generator=g, device=cuda)
+    k = torch.randn((b, h, hd, t), generator=g, device=cuda)
+    v = torch.randn((b, h, hd, t), generator=g, device=cuda)
+    kw = {}
+    if kv_dtype == torch.int8:
+        ks, vs = k.abs().amax(dim=2) / 127.0, v.abs().amax(dim=3) / 127.0
+        k = torch.round(k / ks[:, :, None, :]).to(torch.int8)
+        v = torch.round(v / vs[:, :, :, None]).to(torch.int8)
+        kw = {"k_scale": ks, "v_scale": vs}
+    return q.to(q_dtype), k.to(kv_dtype), v.to(kv_dtype), kw
+
+
+@pytest.mark.parametrize("t,t_valid", [
+    *((1500, tv) for tv in (1, 32, 33, 63, 64, 65, 127, 128, 129, 700,
+                           1500)),
+    (20000, 20000), (20000, 12345)])
+@pytest.mark.parametrize("b", [1, 3, 4, 16, 48])
+def test_k1_split_matches_plain(cuda, b, t, t_valid):
+    # T split across blocks (split_plan), the partials merged by the last
+    # block of each (b, h): every mode, t_valid on and around chunk
+    # edges, T beyond the old shared-memory limit, two launches bit-equal
+    g = _gen(b * 131 + t_valid)
+    for q_dtype, kv_dtype in _K1_MODES:
+        q, k, v, kw = _k1_operands(cuda, b, t, q_dtype, kv_dtype, g)
+        before = _build.STATS["decode_cross_attention"].launches
+        got = da.decode_cross_attention(q, k, v, t_valid=t_valid, **kw)
+        got2 = da.decode_cross_attention(q, k, v, t_valid=t_valid, **kw)
+        assert _build.STATS["decode_cross_attention"].launches == before + 2
+        want = da.decode_cross_attention_reference(
+            q, k[..., :t_valid].contiguous(), v[..., :t_valid].contiguous(),
+            **{n: x[..., :t_valid].contiguous() if n == "k_scale" else x
+               for n, x in kw.items()})
+        torch.cuda.synchronize()
+        mode = f"q {q_dtype}, K/V {kv_dtype}"
+        assert got.dtype == q_dtype and got.shape == q.shape, mode
+        assert torch.equal(got, got2), mode
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= K1_TOL[q_dtype], (mode, err)
+
+
+@pytest.mark.parametrize("hd", [8, 64, 128])
+def test_k1_long_row_merges_in_one_round(cuda, hd):
+    # one (b, h) of 40000 keys: split_plan stops at the splits whose
+    # partials the merging block stages at once (157 or 209 here)
+    g = _gen(hd)
+    for q_dtype, kv_dtype in _K1_MODES:
+        q, k, v, kw = _k1_operands(cuda, 1, 40000, q_dtype, kv_dtype, g,
+                                   h=1, hd=hd)
+        got = da.decode_cross_attention(q, k, v, **kw)
+        got2 = da.decode_cross_attention(q, k, v, **kw)
+        want = da.decode_cross_attention_reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        mode = f"q {q_dtype}, K/V {kv_dtype}"
+        assert torch.equal(got, got2), mode
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= K1_TOL[q_dtype], (mode, err)
+
+
 def test_k1_rejects_bad_operands(cuda):
     q = torch.randn((1, 2, 16), device=cuda)
     k = torch.randn((1, 2, 16, 32), device=cuda)
@@ -326,9 +391,34 @@ def _sm90_cases():
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("tq,tk,d", _sm90_cases())
+def test_k4_fwd_sm90_matches_plain(cuda, tq, tk, d, causal):
+    # the bf16 forward runs the tensor-core kernel
+    assert att.SOURCE[torch.bfloat16] == "flash_attention_sm90"
+    g = _gen(tq * 5 + tk * 11 + d)
+    bh = 3
+    q = (torch.randn((bh, tq, d), generator=g, device=cuda)
+         / math.sqrt(d)).bfloat16()
+    k, v = (torch.randn((bh, tk, d), generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    before = _build.STATS["flash_attention_fwd"].launches
+    out, lse = att.flash_attention_fwd(q, k, v, causal)
+    # a second launch gives the same bits: every output tile has one owner
+    out2, lse2 = att.flash_attention_fwd(q, k, v, causal)
+    p_out, p_lse = att.flash_attention_fwd_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert _build.STATS["flash_attention_fwd"].launches == before + 2
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert out.dtype == torch.bfloat16 and out.shape == p_out.shape
+    assert lse.dtype == torch.float32 and lse.shape == p_lse.shape
+    assert (lse - p_lse).abs().max().item() <= 1e-4
+    assert _k4_ok(out, p_out, torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("tq,tk,d", _sm90_cases())
 def test_k4_bwd_sm90_matches_plain(cuda, tq, tk, d, causal):
     # the bf16 backward runs the tensor-core kernels
-    assert att.BWD_SOURCE[torch.bfloat16] == "flash_attention_bwd_sm90"
+    assert att.SOURCE[torch.bfloat16] == "flash_attention_sm90"
     g = _gen(tq * 7 + tk * 3 + d)
     bh = 3
     q = (torch.randn((bh, tq, d), generator=g, device=cuda)
@@ -359,22 +449,25 @@ def test_k4_bwd_sm90_matches_plain(cuda, tq, tk, d, causal):
         assert _k4_ok(got, want, torch.bfloat16, fl)
 
 
+@pytest.mark.parametrize("symbol", ["flash_attention_fwd",
+                                    "flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkv"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k4_bwd_sources_take_one_dtype_each(cuda, dtype):
-    # float32's backward is the FMA kernels' (its parity route), bf16's the
-    # tensor-core kernels'; each source refuses the other dtype at launch
-    other = {"flash_attention": "flash_attention_bwd_sm90",
-             "flash_attention_bwd_sm90": "flash_attention"}
+def test_k4_sources_take_one_dtype_each(cuda, dtype, symbol):
+    # float32's kernels are the FMA ones (its parity route), bf16's the
+    # tensor-core ones; each source refuses the other dtype at launch
+    other = {"flash_attention": "flash_attention_sm90",
+             "flash_attention_sm90": "flash_attention"}
     x = torch.zeros((2, 8, 64), device=cuda, dtype=dtype)
     lse = torch.zeros((2, 8), device=cuda)
-    for symbol, args, n_out in (("flash_attention_bwd_dq", att._DQ_ARGS, 1),
-                                ("flash_attention_bwd_dkv", att._DKV_ARGS,
-                                 2)):
-        fn = _build.function(other[att.BWD_SOURCE[dtype]], symbol, args)
-        rc = fn(*(_build.ptr(t) for t in (x, x, x, x, lse, lse)),
-                *(_build.ptr(x) for _ in range(n_out)),
-                *att._dims(x, x, False))
-        assert rc != 0
+    bwd_in = (x, x, x, x, lse, lse)
+    ins, outs, args = {
+        "flash_attention_fwd": ((x, x, x), (x, lse), att._FWD_ARGS),
+        "flash_attention_bwd_dq": (bwd_in, (x,), att._DQ_ARGS),
+        "flash_attention_bwd_dkv": (bwd_in, (x, x), att._DKV_ARGS)}[symbol]
+    fn = _build.function(other[att.SOURCE[dtype]], symbol, args)
+    rc = fn(*(_build.ptr(t) for t in ins + outs), *att._dims(x, x, False))
+    assert rc != 0
 
 
 # --------------------------------------------------------------------------

@@ -56,7 +56,12 @@ def _k1_inputs(rng, b=2, h=3, hd=16, t=40, quant="none"):
 
 
 @pytest.mark.parametrize("quant", ["none", "int8"])
-@pytest.mark.parametrize("t,t_valid", [(40, None), (300, None), (256, 200)])
+@pytest.mark.parametrize("t,t_valid", [
+    (40, None), (300, None), (256, 200),
+    # on and next to the kernel's sub-tile and chunk edges (64, 128 or 256
+    # keys, and whole multiples of them)
+    (256, 1), (256, 31), (256, 32), (256, 33), (256, 63), (256, 64),
+    (256, 65), (256, 127), (256, 128), (256, 129), (256, 256)])
 def test_k1_plain_matches_pallas(quant, t, t_valid):
     rng = np.random.default_rng(t)
     q, k, v, ks, vs = _k1_inputs(rng, t=t, quant=quant)
@@ -75,6 +80,55 @@ def test_k1_plain_matches_pallas(quant, t, t_valid):
         t_valid=t_valid))
     np.testing.assert_allclose(got, want_kernel, atol=K1_TOL, rtol=0)
     np.testing.assert_allclose(got, want_ref, atol=K1_TOL, rtol=0)
+
+
+_K1_PLAN_T = (1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256, 257, 511,
+              512, 513, 700, 1500, 20000)
+
+
+@pytest.mark.parametrize("hd", [1, 64])
+@pytest.mark.parametrize("itemsize", [1, 2, 4])
+@pytest.mark.parametrize("bh", [1, 6, 18, 24, 96, 288, 4096])
+def test_k1_split_plan_covers_every_key_once(bh, itemsize, hd):
+    tile = 256 // itemsize          # the kernel's sub-tile: 16 x 16 bytes
+    per_sm = -(-2 * 132 // bh)      # splits that give two blocks per SM
+    # splits whose partials (hd + 2 floats each) fit the kernel's ring of
+    # 2 stages x K and V x hd rows x 17 16-byte segments, which the merge
+    # stages them in
+    cap = 2 * 2 * hd * 17 * 16 // (4 * (hd + 2))
+    for t in _K1_PLAN_T:
+        chunk, splits = da.split_plan(bh, t, itemsize, hd)
+        # fixed for each (B*H, T): no state, no knob
+        assert da.split_plan(bh, t, itemsize, hd) == (chunk, splits)
+        # a chunk is a whole number of sub-tiles
+        assert chunk >= tile and chunk % tile == 0
+        # at least one block per (b, h); the splits tile [0, t) with no
+        # gap or overlap, and the last one holds a key
+        assert 1 <= splits <= cap
+        starts = [i * chunk for i in range(splits)]
+        assert starts[-1] < t <= starts[-1] + chunk
+        covered = np.zeros(t, np.int64)
+        for s in starts:
+            covered[s:s + chunk] += 1
+        assert (covered == 1).all()
+        # two blocks per SM of the H100 wherever T has the sub-tiles for
+        # it, else one sub-tile per split; or, where the ring bounds the
+        # plan, more than half the splits it holds
+        if 2 * splits <= cap:
+            if -(-t // tile) >= per_sm:
+                assert bh * splits >= 2 * 132
+            else:
+                assert chunk == tile
+
+
+def test_k1_split_plan_at_the_serving_shapes():
+    # whisper-tiny (6 heads of 64), T = 1500, bf16 cross K/V: B = 1, 4, 16
+    assert da.split_plan(6, 1500, 2, 64) == (128, 12)
+    assert da.split_plan(24, 1500, 2, 64) == (128, 12)
+    assert da.split_plan(96, 1500, 2, 64) == (512, 3)
+    assert da.split_plan(96, 1500, 1, 64) == (512, 3)
+    # one (b, h) of long float32 K/V: the ring's 263 splits bound the plan
+    assert da.split_plan(1, 20000, 4, 64) == (128, 157)
 
 
 def test_k1_custom_scale_and_bf16_dtype():
