@@ -1,9 +1,11 @@
-// Fused greedy decode step for Hopper (sm_90a): tied-vocab projection,
+// Fused greedy decode step in float32 (sm_90a): tied-vocab projection,
 // logit processors and argmax, without writing the (B, V) logits.
 //
 // Replaces the TPU kernel `_kernel` of audio_transformers_tpu/ops/
-// decode_logits.py (`fused_greedy_step`). Semantics, per row b and padded
-// vocab id v:
+// decode_logits.py (`fused_greedy_step`) for float32 operands, its parity
+// route; bfloat16, the serving path's dtype, runs the tensor-core kernel of
+// decode_logits_sm90.cu, and ops/decode_logits.py picks the source by
+// dtype. Semantics, per row b and padded vocab id v:
 //   l = sum_d hidden[b, d] * table_t[d, v] + add[v]          (float32)
 //   seen[b, v]: l = l > 0 ? l / penalty : l * penalty
 //   ban[b, v]:  l = NEG_INF
@@ -52,9 +54,9 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float m2,
   m = mn;
 }
 
-template <typename T, bool TS>
+template <bool TS>
 __global__ void __launch_bounds__(TILE)
-greedy_pass1(const T* __restrict__ h, const T* __restrict__ table_t,
+greedy_pass1(const float* __restrict__ h, const float* __restrict__ table_t,
              const float* __restrict__ add, const int8_t* __restrict__ seen,
              const int8_t* __restrict__ ban, float penalty,
              const int* __restrict__ tlo, const int* __restrict__ thi,
@@ -69,7 +71,7 @@ greedy_pass1(const T* __restrict__ h, const T* __restrict__ table_t,
   const int rows = min(RB, batch - r0);
   for (int i = threadIdx.x; i < RB * dim; i += TILE) {
     const int r = i / dim;
-    hs[i] = r < rows ? to_f(h[(size_t)(r0 + r) * dim + (i - r * dim)]) : 0.f;
+    hs[i] = r < rows ? h[(size_t)(r0 + r) * dim + (i - r * dim)] : 0.f;
   }
   __syncthreads();
 
@@ -79,7 +81,7 @@ greedy_pass1(const T* __restrict__ h, const T* __restrict__ table_t,
   for (int r = 0; r < RB; ++r) acc[r] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < dim; ++d) {
-    const float w = to_f(table_t[(size_t)d * vocab + v]);
+    const float w = table_t[(size_t)d * vocab + v];
 #pragma unroll
     for (int r = 0; r < RB; ++r) acc[r] = fmaf(hs[r * dim + d], w, acc[r]);
   }
@@ -186,7 +188,7 @@ __global__ void greedy_pass2(const float* __restrict__ pf,
   }
 }
 
-template <typename T, bool TS>
+template <bool TS>
 static int launch(const void* h, const void* table_t, const void* add,
                   const void* seen, const void* ban, float penalty,
                   const void* tlo, const void* thi, const void* tcap, int tb,
@@ -195,8 +197,8 @@ static int launch(const void* h, const void* table_t, const void* add,
   const int n_tiles = vocab / TILE;
   const size_t smem = sizeof(float) * (RB * dim + RB * TILE);
   dim3 grid(n_tiles, (batch + RB - 1) / RB);
-  greedy_pass1<T, TS><<<grid, TILE, smem, stream>>>(
-      (const T*)h, (const T*)table_t, (const float*)add,
+  greedy_pass1<TS><<<grid, TILE, smem, stream>>>(
+      (const float*)h, (const float*)table_t, (const float*)add,
       (const int8_t*)seen, (const int8_t*)ban, penalty, (const int*)tlo,
       (const int*)thi, (const int*)tcap, tb, batch, dim, vocab, (float*)pf,
       (int*)pi);
@@ -208,9 +210,9 @@ static int launch(const void* h, const void* table_t, const void* add,
   return (int)cudaGetLastError();
 }
 
-// seen, ban and the three ts bound vectors may be null; ts mode is on when
-// tlo is not null. vocab must be a multiple of 256. Returns
-// cudaGetLastError() after the launches.
+// float32 operands only (dtype kF32); seen, ban and the three ts bound
+// vectors may be null; ts mode is on when tlo is not null. vocab must be a
+// multiple of 256. Returns cudaGetLastError() after the launches.
 extern "C" int fused_greedy_step(const void* h, const void* table_t,
                                  const void* add, const void* seen,
                                  const void* ban, float penalty,
@@ -219,21 +221,11 @@ extern "C" int fused_greedy_step(const void* h, const void* table_t,
                                  int dim, int vocab, int dtype, void* pf,
                                  void* pi, void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const bool ts = tlo != nullptr;
-  if (dtype == kF32)
-    return ts ? launch<float, true>(h, table_t, add, seen, ban, penalty, tlo,
-                                    thi, tcap, tb, batch, dim, vocab, pf, pi,
-                                    out, s)
-              : launch<float, false>(h, table_t, add, seen, ban, penalty, tlo,
-                                     thi, tcap, tb, batch, dim, vocab, pf, pi,
-                                     out, s);
-  if (dtype == kBF16)
-    return ts ? launch<__nv_bfloat16, true>(h, table_t, add, seen, ban,
-                                            penalty, tlo, thi, tcap, tb,
-                                            batch, dim, vocab, pf, pi, out, s)
-              : launch<__nv_bfloat16, false>(h, table_t, add, seen, ban,
-                                             penalty, tlo, thi, tcap, tb,
-                                             batch, dim, vocab, pf, pi, out,
-                                             s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != kF32) return (int)cudaErrorInvalidValue;
+  return tlo != nullptr
+             ? launch<true>(h, table_t, add, seen, ban, penalty, tlo,
+                             thi, tcap, tb, batch, dim, vocab, pf, pi, out,
+                             s)
+             : launch<false>(h, table_t, add, seen, ban, penalty, tlo, thi,
+                             tcap, tb, batch, dim, vocab, pf, pi, out, s);
 }

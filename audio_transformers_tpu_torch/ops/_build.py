@@ -35,8 +35,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNEL_SOURCES = ("decode_attention", "decode_logits", "mel",
-                  "flash_attention", "flash_attention_sm90", "permute")
+KERNEL_SOURCES = ("decode_attention", "decode_logits", "decode_logits_sm90",
+                  "mel", "flash_attention", "flash_attention_sm90",
+                  "permute")
 
 
 @dataclass

@@ -1,5 +1,5 @@
 """Fused vocab projection + logit processors + argmax for greedy decode,
-as a hand-written CUDA kernel (`csrc/decode_logits.cu`).
+as hand-written CUDA kernels.
 
 Replaces the TPU kernel `fused_greedy_step` (`audio_transformers_tpu/ops/
 decode_logits.py`, `_kernel`). Every greedy decode step takes its token
@@ -8,30 +8,40 @@ vector, the seen-mask repetition penalty, the int8 no-repeat-ngram ban and
 (optionally) the whisper timestamp rules, then the argmax. The (B, V)
 logits never reach device memory.
 
-Bound on the H100: device-memory bandwidth. One call reads the bf16
-table (384 x 52224, 40 MB) once per group of 8 rows, plus the two int8
-masks (B x 52224 bytes each); the projection is 2 * B * 384 FLOPs per
-vocab id, tiny next to the tensor cores' rate. The kernel runs in two
-passes: pass 1 gives each block one 256-id vocab tile and 8 rows, keeps
-the rows' hidden vectors in shared memory and the 8 dot products per
-thread in registers, applies the processors in registers and reduces the
-tile to per-row partials (max, argmax and, for timestamps, the timestamp
-max, argmax and sum of exp, and the text max); pass 2 merges the tiles'
-partials per row. Ties go to the lowest index, inside a tile and across
-tiles, as `torch.argmax` does.
+`SOURCE` maps the operands' dtype to the kernel's source:
 
-Semantics match `fused_greedy_step_reference` (the plain version here)
-and the reference package's kernel and XLA chain: suppression is applied
-before the penalty (a suppressed logit saturates at NEG_INF, and a seen
-one times the penalty overflows to -inf, as in the reference), positive
-seen logits are divided and negative ones multiplied in float32, and the
-ban comes last.
+- bfloat16, the serving path's dtype: `csrc/decode_logits_sm90.cu`, one
+  launch on Hopper's tensor cores. Bound on the H100: device-memory
+  bandwidth (the 384 x 52224 table of whisper-tiny is 40 MB; the
+  projection is 2 * B * D FLOPs per vocab id). `greedy_plan` splits the
+  vocab into 16-id units over one block per SM and the batch into row
+  groups of 8-128; in each block a producer warp streams the block's
+  share of the table through a ring in shared memory (one bulk copy per
+  table row), and 8 warps compute the projection with mma.sync (vocab as
+  the M side, a group's rows as N),
+  applies the processors and reduces each row to partials, and the last
+  block of a row group merges them in the same launch. The partials and
+  the merge counters are scratch kept per (device, stream).
+- float32, the parity route: `csrc/decode_logits.cu`, an FMA kernel in
+  two passes (one block per 256-id tile and 8 rows, then a merge per
+  row).
+
+Ties go to the lowest index, inside a block and across blocks, as
+`torch.argmax` does. Semantics match `fused_greedy_step_reference` (the
+plain version here) and the reference package's kernel and XLA chain:
+suppression is applied before the penalty (a suppressed logit saturates
+at NEG_INF, and a seen one times the penalty overflows to -inf, as in the
+reference), positive seen logits are divided and negative ones multiplied
+in float32, and the ban comes last.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from dataclasses import dataclass
+from types import MappingProxyType
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -39,14 +49,113 @@ from audio_transformers_tpu_torch.ops import _build
 from audio_transformers_tpu_torch.ops.logit_processors import (
     NEG_INF, repetition_penalty)
 
-TILE_V = 256   # vocab ids per block; must match csrc/decode_logits.cu
-ROWS = 8       # rows per block; must match csrc/decode_logits.cu
+# dtype -> the kernel source (csrc/<name>.cu) that runs it
+SOURCE = MappingProxyType({torch.bfloat16: "decode_logits_sm90",
+                           torch.float32: "decode_logits"})
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# float32 route (csrc/decode_logits.cu)
+TILE_V = 256   # vocab ids per block
+ROWS = 8       # rows per block
 _SMEM_LIMIT = 48 * 1024
 # hidden, table_t, add, seen, ban; penalty; tlo, thi, tcap; tb, batch,
 # dim, vocab, dtype; partials (float, int), out; stream
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_float] + [ctypes.c_void_p] * 3
              + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
+
+# bfloat16 route (csrc/decode_logits_sm90.cu); the sizes must match it
+UNIT_V = 16                      # vocab ids per unit of the split
+STAGE_ROWS = 32                  # table rows per stage of the ring
+STAGES = 4                       # stages of the ring
+# rows of a group -> units per warp of a tile (the kernel's Shape<rows / 8>)
+GROUP_UPW = MappingProxyType({8: 4, 16: 4, 32: 4, 64: 2, 128: 1})
+GROUP_ROWS = tuple(GROUP_UPW)
+SMEM_MAX = 232448 - 1024
+H100_SMS = 132
+# hidden, table_t, add, seen, ban; penalty; tlo, thi, tcap; tb, batch,
+# dim, vocab, rows, blocks; partials (float, int), counters, out; stream
+_SM90_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_float]
+                  + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                  + [ctypes.c_void_p] * 5)
+# the scratch of each (device, stream): the merge counters (int32, zero
+# between launches) and the partials (float32, int32)
+_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, ...]] = {}
+
+
+@dataclass(frozen=True)
+class GreedyPlan:
+    """How the bf16 kernel splits one call: `blocks` blocks over the vocab
+    (each a contiguous run of 16-id units, `block_ids`), `groups` row
+    groups of `rows` rows (the table is read once per group), and the
+    dynamic shared memory each block uses."""
+    blocks: int
+    rows: int
+    groups: int
+    smem: int
+
+
+def sm90_smem_bytes(rows: int, dim: int) -> int:
+    """Shared memory of a block of the bf16 kernel: the ring of table
+    stages (32 rows of a tile of 8 warps x `upw` units, plus 16 bytes a
+    row), the group's hidden rows (D padded to 32, plus 16 bytes a row)
+    and the float32 logits tile (the tile's ids plus 4 a row)."""
+    tile = 8 * GROUP_UPW[rows] * UNIT_V
+    dp = -(-dim // STAGE_ROWS) * STAGE_ROWS
+    return (STAGES * STAGE_ROWS * (2 * tile + 16) + rows * (2 * dp + 16)
+            + rows * (tile + 4) * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def greedy_plan(batch: int, dim: int, v_pad: int,
+                n_sm: int = H100_SMS) -> GreedyPlan:
+    """The bf16 kernel's split of a (batch, dim) x (dim, v_pad) call on a
+    card of `n_sm` SMs: one block per SM (at most one per unit), and the
+    smallest row group that holds the batch and whose block fits in shared
+    memory, else the largest that fits."""
+    if dim < 8 or dim % 8 or v_pad < UNIT_V or v_pad % UNIT_V:
+        raise ValueError(f"D={dim} must be a multiple of 8 and V_pad="
+                         f"{v_pad} of {UNIT_V}")
+    fits = [r for r in GROUP_ROWS if sm90_smem_bytes(r, dim) <= SMEM_MAX]
+    if not fits:
+        raise ValueError(f"D={dim} too wide for the kernel's shared memory")
+    rows = next((r for r in fits if r >= batch), fits[-1])
+    return GreedyPlan(blocks=min(n_sm, v_pad // UNIT_V), rows=rows,
+                      groups=-(-batch // rows),
+                      smem=sm90_smem_bytes(rows, dim))
+
+
+def block_ids(plan: GreedyPlan, v_pad: int, block: int) -> range:
+    """The vocab ids that block `block` of the plan reduces (the kernel
+    computes the same bounds)."""
+    units = v_pad // UNIT_V
+    return range(block * units // plan.blocks * UNIT_V,
+                 (block + 1) * units // plan.blocks * UNIT_V)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device `index` (the bf16 kernel's grid)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _scratch(device: torch.device, stream: int, n_count: int,
+             n_part: int) -> Tuple[torch.Tensor, ...]:
+    """(counters, float partials, int partials) of (device, stream), with
+    at least n_count counters and n_part partials each: made once (the
+    counters zeroed) and grown when a call needs more. Launches on one
+    stream run one after another, so they share them; the kernel leaves
+    the counters zero."""
+    key = (device.index, stream)
+    count, pf, pi = _SCRATCH.get(key, (None, None, None))
+    if count is None or count.numel() < n_count:
+        count = torch.zeros(max(n_count, 64), dtype=torch.int32,
+                            device=device)
+    if pf is None or pf.numel() < n_part:
+        n = max(n_part, 1 << 16)
+        pf = torch.empty(n, dtype=torch.float32, device=device)
+        pi = torch.empty(n, dtype=torch.int32, device=device)
+    _SCRATCH[key] = (count, pf, pi)
+    return count, pf, pi
 
 
 def pad_vocab(v: int, block_v: int = 1024) -> int:
@@ -143,13 +252,10 @@ def fused_greedy_step(hidden: torch.Tensor, table_t: torch.Tensor,
             ts_bounds=ts_bounds, timestamp_begin=timestamp_begin)
     b, d = hidden.shape
     v_pad = table_t.shape[1]
-    if hidden.dtype not in _DTYPES or table_t.dtype != hidden.dtype:
+    if hidden.dtype not in SOURCE or table_t.dtype != hidden.dtype:
         raise TypeError(f"hidden/table dtypes {hidden.dtype}/"
                         f"{table_t.dtype}: want one of float32, bfloat16")
-    if v_pad % TILE_V:
-        raise ValueError(f"V_pad={v_pad} is not a multiple of {TILE_V}")
-    if 4 * ROWS * (d + TILE_V) > _SMEM_LIMIT:
-        raise ValueError(f"D={d} too wide for the kernel's shared memory")
+    source = SOURCE[hidden.dtype]
     bounds = [None] * 3 if ts_bounds is None else [
         x.to(device=hidden.device, dtype=torch.int32).contiguous()
         for x in ts_bounds]
@@ -160,21 +266,36 @@ def fused_greedy_step(hidden: torch.Tensor, table_t: torch.Tensor,
                               or not x.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous tensor on "
                              f"{hidden.device}")
+        if (x is not None and source == "decode_logits_sm90"
+                and x.data_ptr() % 16):
+            raise ValueError(f"{name} must be 16-byte aligned")
     if add.dtype != torch.float32:
         raise TypeError("add_vec must be float32")
-    n_tiles = v_pad // TILE_V
-    planes = 1 if ts_bounds is None else 4
-    pf = torch.empty((planes, b, n_tiles), dtype=torch.float32,
-                     device=hidden.device)
-    pi = torch.empty((2, b, n_tiles), dtype=torch.int32, device=hidden.device)
+    stream = _build.stream_ptr(hidden)
     out = torch.empty((b,), dtype=torch.int32, device=hidden.device)
-    fn = _build.function("decode_logits", "fused_greedy_step", _ARGTYPES)
-    rc = fn(_build.ptr(hidden), _build.ptr(table_t), _build.ptr(add),
-            _build.ptr(seen), _build.ptr(ban), float(penalty),
-            *(_build.ptr(x) for x in bounds),
-            int(timestamp_begin or 0), b, d, v_pad, _DTYPES[hidden.dtype],
-            _build.ptr(pf), _build.ptr(pi), _build.ptr(out),
-            _build.stream_ptr(hidden))
+    common = (_build.ptr(hidden), _build.ptr(table_t), _build.ptr(add),
+              _build.ptr(seen), _build.ptr(ban), float(penalty),
+              *(_build.ptr(x) for x in bounds), int(timestamp_begin or 0),
+              b, d, v_pad)
+    if source == "decode_logits_sm90":
+        plan = greedy_plan(b, d, v_pad, sm_count(hidden.device.index))
+        count, pf, pi = _scratch(hidden.device, stream.value, plan.groups,
+                                 4 * b * plan.blocks)
+        fn = _build.function(source, "fused_greedy_step_sm90",
+                             _SM90_ARGTYPES)
+        rc = fn(*common, plan.rows, plan.blocks, _build.ptr(pf),
+                _build.ptr(pi), _build.ptr(count), _build.ptr(out), stream)
+    else:
+        if v_pad % TILE_V:
+            raise ValueError(f"V_pad={v_pad} is not a multiple of {TILE_V}")
+        if 4 * ROWS * (d + TILE_V) > _SMEM_LIMIT:
+            raise ValueError(f"D={d} too wide for the kernel's shared "
+                             f"memory")
+        _, pf, pi = _scratch(hidden.device, stream.value, 0,
+                             4 * b * (v_pad // TILE_V))
+        fn = _build.function(source, "fused_greedy_step", _ARGTYPES)
+        rc = fn(*common, _DTYPES[hidden.dtype], _build.ptr(pf),
+                _build.ptr(pi), _build.ptr(out), stream)
     _build.check(rc, "fused_greedy_step")
     _build.STATS["fused_greedy_step"].launches += 1
     return out

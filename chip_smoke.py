@@ -10,10 +10,13 @@ each raising on failure:
   2. build the hand-written CUDA kernels from csrc/ (nvcc, sm_90a), one
      nvcc per source, all started together;
   3. each serving kernel against its plain PyTorch version on the card at
-     the serving path's shapes (B in {4, 16}, and for K1 also B = 1;
-     T=1500, V=51865 padded to 52224, 30 s audio), with the tolerances
-     below, and their times (CUDA events, median of 20 after warm-up); for
-     K1 two launches bit-equal, the time of torch's
+     the serving path's shapes (B in {4, 16}, and for K1 and K2 also
+     B = 1, for K2 also B = 128; T=1500, V=51865 padded to 52224, 30 s
+     audio), with the tolerances below, and their times (CUDA events,
+     median of 20 after warm-up); for K2 (bf16: csrc/decode_logits_sm90.cu)
+     two launches bit-equal, one launch per call (the wrapper's counter
+     and the profiler's kernel count) and its device time
+     (torch.profiler); for K1 two launches bit-equal, the time of torch's
      scaled_dot_product_attention (SDPA) on the same bf16 q, K, V (one
      query; K and V in SDPA's (B, H, T, hd) layout, and as transposed
      views of the kernel's time-minor tensors), and the device time of K1
@@ -99,7 +102,8 @@ this run's inputs) and `bound_by`, and `library_ms`, the time of one
 PyTorch call computing the same function where there is one (SDPA for
 K1, on K/V in its own layout, and for K4; its backward computes K4b and
 K4c together), else null; K1's entry also has `device_ms` and
-`library_device_ms` (profiler kernel time of K1 and of that SDPA call).
+`library_device_ms` (profiler kernel time of K1 and of that SDPA call),
+K2's `device_ms`.
 The last line is {"ok": true, "device": {...}}. Nothing of JAX is
 imported.
 """
@@ -135,7 +139,7 @@ REPLACES = {
 }
 SOURCES = {
     "decode_cross_attention": "audio_transformers_tpu_torch/csrc/decode_attention.cu",
-    "fused_greedy_step": "audio_transformers_tpu_torch/csrc/decode_logits.cu",
+    "fused_greedy_step": "audio_transformers_tpu_torch/csrc/decode_logits_sm90.cu",
     "log_mel": "audio_transformers_tpu_torch/csrc/mel.cu",
     "flash_attention_fwd": "audio_transformers_tpu_torch/csrc/flash_attention_sm90.cu",
     "flash_attention_bwd_dq": "audio_transformers_tpu_torch/csrc/flash_attention_sm90.cu",
@@ -199,10 +203,10 @@ def time_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=20):
-    """Device time of one fn() in ms: the summed time of the kernels it
-    launched, from torch.profiler over `reps` calls after a warm-up. Unlike
-    time_ms, it leaves out the host time of a call."""
+def device_profile(fn, reps=20):
+    """(ms, kernels) of one fn(): the summed device time of the kernels it
+    launched and their number, from torch.profiler over `reps` calls after
+    a warm-up. Unlike time_ms, it leaves out the host time of a call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -214,7 +218,13 @@ def device_ms(fn, reps=20):
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     require(kernels, "the profiler recorded no kernel")
-    return sum(e.time_range.elapsed_us() for e in kernels) / reps / 1e3
+    return (sum(e.time_range.elapsed_us() for e in kernels) / reps / 1e3,
+            len(kernels) / reps)
+
+
+def device_ms(fn, reps=20):
+    """Device time of one fn() in ms (device_profile)."""
+    return device_profile(fn, reps)[0]
 
 
 def bound(nbytes, flops, flops_per_s):
@@ -357,7 +367,11 @@ def check_k2(torch, dl, lp, decode, cfg, gen, results):
                              vocab=v, device=dev)
     worst, below = 0, 0
     tb = cfg.timestamp_begin_id
-    for b in (4, 16):
+    from audio_transformers_tpu_torch.ops import _build
+    stats = _build.STATS["fused_greedy_step"]
+    # B = 1: the transcription window; 4: the segment bucket; 16: a full
+    # micro-batch; 128: the reference bench's decode batch
+    for b in (1, 4, 16, 128):
         hidden = torch.randn((b, d), generator=gen, device=dev).bfloat16()
         seen = (torch.rand((b, v_pad), generator=gen, device=dev) < 0.002
                 ).to(torch.int8)
@@ -381,7 +395,11 @@ def check_k2(torch, dl, lp, decode, cfg, gen, results):
                  "ts": {"seen": seen, "ban": ban, "penalty": 1.15,
                         "ts_bounds": bounds, "timestamp_begin": tb}}
         for name, kw in modes.items():
+            before = stats.launches
             got = dl.fused_greedy_step(hidden, table_t, add, **kw)
+            got2 = dl.fused_greedy_step(hidden, table_t, add, **kw)
+            require(stats.launches == before + 2,
+                    f"K2 B={b}: one launch per call")
             want = dl.fused_greedy_step_reference(hidden, table_t, add, **kw)
             l = dl.processed_logits(hidden, table_t, add, **kw)
             ok = _k2_decidable(l, "ts_bounds" in kw, tb)
@@ -393,22 +411,33 @@ def check_k2(torch, dl, lp, decode, cfg, gen, results):
             log(f"K2 B={b} {name:11s} tokens equal on "
                 f"{int(ok.sum()) - int((diff != 0).sum())}/{int(ok.sum())} "
                 f"decidable rows; rows below the {K2_GAP} gap: {n_below}; "
-                f"mismatches overall: {mism}")
+                f"mismatches overall: {mism}; two launches bit-equal")
             require(err == 0, f"K2 {name} B={b}: tokens differ")
+            require(torch.equal(got, got2), f"K2 {name} B={b}: two "
+                    f"launches differ")
             worst, below = max(worst, err), below + n_below
         kw = modes["penalty+ban"]
-        ms = time_ms(lambda: dl.fused_greedy_step(hidden, table_t, add, **kw))
+
+        def kernel():
+            return dl.fused_greedy_step(hidden, table_t, add, **kw)
+        ms = time_ms(kernel)
         plain = time_ms(lambda: dl.fused_greedy_step_reference(
             hidden, table_t, add, **kw))
+        dev_ms, per_call = device_profile(kernel)
+        require(per_call == 1, f"K2 B={b}: {per_call} kernels per call")
         # reads the table, the bias row, hidden and the two masks once;
         # writes one int32 token per row
         bnd = bound(nbytes(hidden, table_t, add, seen, ban) + 4 * b,
                     2 * b * d * v_pad, BF16_FLOPS)
-        log(f"K2 B={b} penalty+ban time: kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})")
-        results[b]["fused_greedy_step"] = {
+        plan = dl.greedy_plan(b, d, v_pad, dl.sm_count(0))
+        log(f"K2 B={b} penalty+ban time: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms; device time {dev_ms:.4f} ms in {per_call:g} "
+            f"kernel per call; bound {bnd[0]:.4f} ms ({bnd[1]}, "
+            f"{100 * bnd[0] / dev_ms:.1f}% of it by device time); plan "
+            f"{plan}")
+        results.setdefault(b, {})["fused_greedy_step"] = {
             "ms": ms, "plain_ms": plain, "library_ms": None,
-            "bound_ms": bnd[0], "bound_by": bnd[1]}
+            "device_ms": dev_ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
     return worst, below
 
 
@@ -1102,6 +1131,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     times = {}
     err = {"decode_cross_attention": check_k1(torch, da, gen, times)}
+    # bf16 (the serving path's dtype) runs K2's tensor-core source
+    require(dl.SOURCE[torch.bfloat16] == "decode_logits_sm90",
+            "bf16 K2 routes to csrc/decode_logits_sm90.cu")
     err["fused_greedy_step"], below = check_k2(torch, dl, lp, decode, w, gen,
                                                times)
     err["log_mel"] = check_k3(torch, mel, MelConfig.whisper(), gen, times)
@@ -1193,7 +1225,8 @@ def main() -> int:
                  "replaces": REPLACES[name], "launches": stats[name][0],
                  "max_abs_err": err[name], **t4,
                  **{f"{k}_b16": v for k, v in t16.items()},
-                 **{f"{k}_b1": v for k, v in times[1].get(name, {}).items()}}
+                 **{f"{k}_b{b}": v for b in (1, 128)
+                    for k, v in times.get(b, {}).get(name, {}).items()}}
         if name in train_launches:
             entry["launches_training"] = train_launches[name]
         kernels.append(entry)

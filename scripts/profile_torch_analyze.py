@@ -40,7 +40,7 @@ sys.path.insert(0, HERE)
 RUNS = 3
 # the port's kernels on this path, by a part of their CUDA function names
 PORT_KERNELS = {"decode_cross_attention": "dca_",
-                "fused_greedy_step": "greedy_pass",
+                "fused_greedy_step": "greedy_",
                 "log_mel": "mel_kernel"}
 
 

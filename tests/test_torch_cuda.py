@@ -208,19 +208,14 @@ def _decidable(l, ts, tb):
     return (margin.abs() > K2_GAP) & (region > K2_GAP)
 
 
-@pytest.mark.parametrize("geom", [(3, 1900, 24), (16, 51865, 384)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mode", ["plain", "seen", "ban", "seen_ban", "ts"])
-def test_k2_matches_plain(cuda, geom, dtype, mode):
-    b, v, d = geom
-    hidden, table_t, add, seen, ban = _k2_case(cuda, b, v, d, dtype, 1)
+def _k2_kwargs(cuda, b, v, mode, seen, ban):
     kw = {}
     if "seen" in mode:
         kw.update(seen=seen, penalty=1.15)
     if "ban" in mode:
         kw["ban"] = ban
-    tb = v - 300
     if mode == "ts":
+        tb = v - 300
         g = _gen(2)
         hist = torch.randint(0, tb, (b, 12), generator=g, device=cuda)
         state = torch.arange(b, device=cuda) % 3
@@ -231,24 +226,113 @@ def test_k2_matches_plain(cuda, geom, dtype, mode):
         kw.update(ts_bounds=lp.timestamp_row_bounds(
             hist, 8, begin_index=2, timestamp_begin=tb, eos_token_id=0),
             timestamp_begin=tb)
+    return kw
+
+
+# D = 24 at a small vocab; whisper-tiny's D = 384 and large's 1280 at the
+# real one. bf16 runs the tensor-core kernel (decode_logits_sm90.cu),
+# float32 the FMA one (decode_logits.cu).
+@pytest.mark.parametrize("b", [1, 3, 4, 16, 128])
+@pytest.mark.parametrize("d", [24, 384, 1280])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["plain", "seen", "ban", "seen_ban", "ts"])
+def test_k2_matches_plain(cuda, b, d, dtype, mode):
+    v = 1900 if d == 24 else 51865
+    hidden, table_t, add, seen, ban = _k2_case(cuda, b, v, d, dtype, 1)
+    kw = _k2_kwargs(cuda, b, v, mode, seen, ban)
     before = _build.STATS["fused_greedy_step"].launches
     got = dl.fused_greedy_step(hidden, table_t, add, **kw)
     assert _build.STATS["fused_greedy_step"].launches == before + 1
+    got2 = dl.fused_greedy_step(hidden, table_t, add, **kw)
     want = dl.fused_greedy_step_reference(hidden, table_t, add, **kw)
     ok = _decidable(dl.processed_logits(hidden, table_t, add, **kw),
-                    mode == "ts", tb)
+                    mode == "ts", v - 300)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and got.shape == (b,)
+    assert torch.equal(got, got2)
     assert ok.any()
     assert torch.equal(got[ok], want[ok])
 
 
-def test_k2_ties_go_to_lowest_index(cuda):
-    hidden = torch.ones((2, 4), device=cuda)
-    table_t = torch.zeros((4, 1024), device=cuda)
-    table_t[:, [7, 300, 900]] = 1.0
-    add = torch.zeros((1, 1024), device=cuda)
+def test_k2_merge_counter_resets_itself(cuda):
+    # the last block of each row group merges and zeroes its counter: many
+    # calls in a row on one stream, and calls on a second stream (its own
+    # counters and partials), give the same tokens
+    b, v, d = 40, 51865, 1280      # several row groups at this width
+    hidden, table_t, add, seen, ban = _k2_case(cuda, b, v, d,
+                                               torch.bfloat16, 3)
+    assert dl.greedy_plan(b, d, dl.pad_vocab(v)).groups >= 2
+    kw = _k2_kwargs(cuda, b, v, "ts", seen, ban)
+    first = dl.fused_greedy_step(hidden, table_t, add, **kw)
+    runs = [dl.fused_greedy_step(hidden, table_t, add, **kw)
+            for _ in range(50)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = [dl.fused_greedy_step(hidden, table_t, add, **kw)
+                   for _ in range(5)]
+    torch.cuda.synchronize()
+    for t in runs + on_side:
+        assert torch.equal(t, first)
+    want = dl.fused_greedy_step_reference(hidden, table_t, add, **kw)
+    ok = _decidable(dl.processed_logits(hidden, table_t, add, **kw), True,
+                    v - 300)
+    assert torch.equal(first[ok], want[ok])
+    dev = torch.cuda.current_device()
+    assert len({k for k in dl._SCRATCH if k[0] == dev}) >= 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v_pad,ids", [(1024, [7, 300, 900]),
+                                       (52224, [7, 26000, 52000])])
+def test_k2_ties_go_to_lowest_index(cuda, dtype, v_pad, ids):
+    # equal maxima in different blocks of either kernel's split
+    hidden = torch.ones((2, 16), device=cuda, dtype=dtype)
+    table_t = torch.zeros((16, v_pad), device=cuda, dtype=dtype)
+    table_t[:, ids] = 1.0
+    add = torch.zeros((1, v_pad), device=cuda)
+    if dtype == torch.bfloat16:
+        plan = dl.greedy_plan(2, 16, v_pad,
+                              dl.sm_count(torch.cuda.current_device()))
+        owner = [next(i for i in range(plan.blocks)
+                      if t in dl.block_ids(plan, v_pad, i)) for t in ids]
+        assert len(set(owner)) == len(ids)
     assert dl.fused_greedy_step(hidden, table_t, add).tolist() == [7, 7]
+
+
+def test_k2_sources_take_one_dtype_each(cuda):
+    # float32's kernel is the FMA one (its parity route): it refuses bf16,
+    # which only the tensor-core source takes (its entry point has no
+    # dtype argument)
+    x = torch.zeros((2, 64), device=cuda, dtype=torch.bfloat16)
+    table_t = torch.zeros((64, 1024), device=cuda, dtype=torch.bfloat16)
+    add = torch.zeros(1024, device=cuda)
+    part = torch.zeros(4096, device=cuda)
+    out = torch.zeros(2, device=cuda, dtype=torch.int32)
+    fn = _build.function(dl.SOURCE[torch.float32], "fused_greedy_step",
+                         dl._ARGTYPES)
+    rc = fn(_build.ptr(x), _build.ptr(table_t), _build.ptr(add), None,
+            None, 1.0, None, None, None, 0, 2, 64, 1024,
+            dl._DTYPES[torch.bfloat16], _build.ptr(part), _build.ptr(part),
+            _build.ptr(out), _build.stream_ptr(x))
+    assert rc != 0
+
+
+def test_k2_rejects_bad_operands(cuda):
+    hidden, table_t, add, _, _ = _k2_case(cuda, 2, 1900, 24,
+                                          torch.bfloat16, 4)
+    # a contiguous view 2 bytes off a 16-byte boundary
+    buf = torch.zeros(2 * 24 + 1, device=cuda, dtype=torch.bfloat16)
+    off = buf[1:].view(2, 24)
+    off.copy_(hidden)
+    with pytest.raises(ValueError):
+        dl.fused_greedy_step(off, table_t, add)
+    # D must be a multiple of 8 for the bf16 kernel's 16-byte copies
+    h20 = torch.zeros((2, 20), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        dl.fused_greedy_step(h20, table_t[:20].contiguous(), add)
+    with pytest.raises(TypeError):
+        dl.fused_greedy_step(hidden.half(), table_t.half(), add)
 
 
 # --------------------------------------------------------------------------

@@ -9,6 +9,8 @@ dispatch. The kernels themselves run only on a GPU
   K3 log_mel                 <= 1e-4 (f32 sums in another order, log10)
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -257,6 +259,84 @@ def test_k2_rejects_misuse():
                              seen=_t(seen))
     with pytest.raises(ValueError):
         dl.fused_greedy_step(_t(hidden), _t(table_t), _t(add[:, :100]))
+
+
+@pytest.mark.parametrize("mode", ["seen_ban", "ts_seen_ban"])
+@pytest.mark.parametrize("b", [1, 13])
+def test_k2_plain_matches_pallas_at_batch(b, mode):
+    # one row (the transcription window) and a batch that is not a
+    # multiple of the kernels' 8-row groups
+    hidden, table_t, add, seen, ban = _k2_inputs(b, b=b)
+    kw = {"seen": seen, "penalty": 1.15, "ban": ban}
+    if mode.startswith("ts"):
+        kw["ts_bounds"], kw["timestamp_begin"] = _ts_bounds(b, b=b), TB
+    jkw = {n: (tuple(jnp.asarray(x) for x in a) if n == "ts_bounds"
+               else jnp.asarray(a) if isinstance(a, np.ndarray) else a)
+           for n, a in kw.items()}
+    want = np.asarray(jdl.fused_greedy_step(
+        jnp.asarray(hidden), jnp.asarray(table_t), jnp.asarray(add),
+        block_v=1024, interpret=True, **jkw))
+    tkw = {n: (tuple(_t(np.asarray(x)) for x in a) if n == "ts_bounds"
+               else _t(a) if isinstance(a, np.ndarray) else a)
+           for n, a in kw.items()}
+    got = _np(dl.fused_greedy_step(_t(hidden), _t(table_t), _t(add), **tkw))
+    assert got.shape == (b,)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("b", [1, 4, 16, 128])
+@pytest.mark.parametrize("dim", [24, 64, 384, 512, 768, 1024, 1280])
+def test_k2_plan_covers_every_id_once(dim, b):
+    for v_pad in (1024, 52224):
+        plan = dl.greedy_plan(b, dim, v_pad)
+        assert plan.blocks == min(dl.H100_SMS, v_pad // dl.UNIT_V)
+        ids = [dl.block_ids(plan, v_pad, i) for i in range(plan.blocks)]
+        assert [v for r in ids for v in r] == list(range(v_pad))
+        sizes = {len(r) for r in ids}
+        assert min(sizes) >= dl.UNIT_V and max(sizes) - min(sizes) <= \
+            dl.UNIT_V
+        assert all(r.start % dl.UNIT_V == 0 for r in ids)
+        # the row groups cover the batch exactly, the block fits
+        assert plan.rows in dl.GROUP_ROWS
+        assert (plan.groups - 1) * plan.rows < b <= plan.groups * plan.rows
+        assert plan.smem == dl.sm90_smem_bytes(plan.rows, dim) \
+            <= dl.SMEM_MAX
+        # the table is read once per call up to B = 16 at every preset
+        # width and up to B = 128 at whisper-tiny's
+        if b <= 16 or dim <= 384:
+            assert plan.groups == 1
+
+
+def test_k2_plan_rejects_what_the_kernel_cannot_take():
+    for dim, v_pad in ((20, 1024), (384, 1000), (0, 1024), (40000, 1024)):
+        with pytest.raises(ValueError):
+            dl.greedy_plan(1, dim, v_pad)
+
+
+def test_k2_plan_constants_match_the_kernel_source():
+    src = (_build.CSRC / "decode_logits_sm90.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert const("kUnit") == dl.UNIT_V
+    assert const("kStageRows") == dl.STAGE_ROWS
+    assert const("kThreads") == 256
+    assert const("kStages") == dl.STAGES
+    # Shape<NT>: units per warp by NT = rows / 8
+    assert "static constexpr int UPW = NT <= 4 ? 4 : NT == 8 ? 2 : 1;" in src
+    for rows, upw in dl.GROUP_UPW.items():
+        nt = rows // 8
+        assert upw == (4 if nt <= 4 else 2 if nt == 8 else 1)
+    assert "constexpr int kMaxSmem = 232448 - 1024;" in src
+    assert dl.SMEM_MAX == 232448 - 1024
+
+
+def test_k2_source_routes_by_dtype():
+    assert dict(dl.SOURCE) == {torch.bfloat16: "decode_logits_sm90",
+                               torch.float32: "decode_logits"}
+    assert set(dl.SOURCE.values()) <= set(_build.KERNEL_SOURCES)
+    with pytest.raises(TypeError):
+        dl.SOURCE[torch.float16] = "decode_logits"
 
 
 def test_pad_vocab():
