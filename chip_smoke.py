@@ -13,7 +13,15 @@ each raising on failure:
      the serving path's shapes (B in {4, 16}, and for K1 and K2 also
      B = 1, for K2 also B = 128; T=1500, V=51865 padded to 52224, 30 s
      audio), with the tolerances below, and their times (CUDA events,
-     median of 20 after warm-up); for K2 (bf16: csrc/decode_logits_sm90.cu)
+     median of 20 after warm-up); for K3 also B = 1, two launches
+     bit-equal, one launch per call (the wrapper's counter and the
+     profiler: one K3 kernel a call, no padding kernel), its device time
+     and the whole call's (torch.profiler), torch.stft's device time on
+     the same clips (Hann 400, hop 160, centred, reflect: the STFT alone,
+     a yardstick only), the kernel's and the plain version's error
+     against the float64 golden `reference_log_mel` at B = 4, and
+     UrbanSound's preset (n_fft 1024) on 16 clips of 4 s against its plain
+     version and the golden; for K2 (bf16: csrc/decode_logits_sm90.cu)
      two launches bit-equal, one launch per call (the wrapper's counter
      and the profiler's kernel count) and its device time
      (torch.profiler); for K1 two launches bit-equal, the time of torch's
@@ -77,7 +85,8 @@ Tolerances (kernel vs plain version, on the card):
      (and, with timestamps, the margin of the probability rule) exceeds
      1e-3; rows below that gap are reported, not compared.
   K3 log_mel: 2e-4 abs on the final features (f32 sums in another order,
-     then log10).
+     then log10); against the float64 golden, 2e-5 + 1e-5 |ref| (the JAX
+     package's golden tolerance).
   K4a/b/c flash attention fwd, dq, dk/dv: in float32, max|err| <= 2e-5 *
      max(1, max|plain|) (sum order only); in bfloat16, within two bf16
      ulps at the tensor's largest magnitude (the output is rounded to
@@ -103,7 +112,10 @@ PyTorch call computing the same function where there is one (SDPA for
 K1, on K/V in its own layout, and for K4; its backward computes K4b and
 K4c together), else null; K1's entry also has `device_ms` and
 `library_device_ms` (profiler kernel time of K1 and of that SDPA call),
-K2's `device_ms`.
+K2's `device_ms`, K3's `device_ms` and `kernels_per_call` (K3's own),
+`call_device_ms` and `call_kernels` (the whole `log_mel` call: K3 and the
+whisper floor after it) and `stft_ms` (torch.stft's device time, no
+library call of the same function: the STFT alone).
 The last line is {"ok": true, "device": {...}}. Nothing of JAX is
 imported.
 """
@@ -128,6 +140,8 @@ K1_TOL_F32, K1_TOL_BF16, K2_GAP, K3_TOL = 1e-5, 2e-2, 1e-3, 2e-4
 K4_TOL_F32, K4_ULPS_BF16 = 2e-5, 2
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+# traces taken of one profiled function before an empty one fails it
+PROFILE_TRIES = 3
 REPLACES = {
     "decode_cross_attention": "audio_transformers_tpu/ops/decode_attention.py:100",
     "fused_greedy_step": "audio_transformers_tpu/ops/decode_logits.py:82",
@@ -203,23 +217,37 @@ def time_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def device_profile(fn, reps=20):
-    """(ms, kernels) of one fn(): the summed device time of the kernels it
-    launched and their number, from torch.profiler over `reps` calls after
-    a warm-up. Unlike time_ms, it leaves out the host time of a call."""
+def kernel_events(fn, reps=20):
+    """[(name, us)] of the kernels `reps` calls of fn() launched, from
+    torch.profiler after a warm-up call. A trace that holds no kernel at
+    all (the profiler has returned one now and then) is taken again, up
+    to PROFILE_TRIES times, and said so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            return events
+        log(f"the profiler recorded no kernel (trace {attempt + 1} of "
+            f"{PROFILE_TRIES})")
+    return events
+
+
+def device_profile(fn, reps=20):
+    """(ms, kernels) of one fn(): the summed device time of the kernels it
+    launched and their number, from torch.profiler over `reps` calls after
+    a warm-up. Unlike time_ms, it leaves out the host time of a call."""
+    kernels = [us for _, us in kernel_events(fn, reps)]
     require(kernels, "the profiler recorded no kernel")
-    return (sum(e.time_range.elapsed_us() for e in kernels) / reps / 1e3,
-            len(kernels) / reps)
+    return sum(kernels) / reps / 1e3, len(kernels) / reps
 
 
 def device_ms(fn, reps=20):
@@ -441,35 +469,106 @@ def check_k2(torch, dl, lp, decode, cfg, gen, results):
     return worst, below
 
 
+def _k3_golden_err(mel, cfg, got, wav):
+    """(max |err|, max |err| / (2e-5 + 1e-5 |ref|)) of features `got`
+    against the float64 golden `mel.reference_log_mel` of each clip."""
+    import numpy as np
+    ref = np.stack([mel.reference_log_mel(c, cfg) for c in wav.cpu().numpy()])
+    d = np.abs(got.cpu().numpy() - ref)
+    return float(d.max()), float((d / (2e-5 + 1e-5 * np.abs(ref))).max())
+
+
+def k3_bound(mel_cfg, mel, b, n):
+    """(bound_ms, bound_by) of one K3 call on (b, n) samples: the waveform
+    read once and the kernel's (b, frames, n_mels) float32 written once,
+    against the float32 operations per frame (the window, a real FFT of
+    n_fft padded to a power of two at 2.5 N log2 N, the power spectrum
+    and the filterbank at its nonzeros, which is what its bins need)."""
+    frames = n // mel_cfg.hop_length + 1
+    nnz = int((mel.mel_filter_bank(mel_cfg) != 0).sum())
+    n_pow2 = 1 << (mel_cfg.n_fft - 1).bit_length()
+    flops = b * frames * (mel_cfg.n_fft + 2.5 * n_pow2 * math.log2(n_pow2)
+                          + 3 * (mel_cfg.n_fft // 2 + 1) + 2 * nnz)
+    return bound(4 * b * n + 4 * b * frames * mel_cfg.n_mels, flops,
+                 F32_FLOPS)
+
+
 def check_k3(torch, mel, mel_cfg, gen, results):
+    from audio_transformers_tpu_torch.ops import _build
+    stats = _build.STATS["log_mel"]
     worst = 0.0
-    for b in (4, 16):
+    window = torch.hann_window(mel_cfg.n_fft, device="cuda")
+    # B = 1: the transcription window; 4: the segment bucket; 16: a
+    # training batch and the pipeline's largest bucket
+    for b in (1, 4, 16):
         wav = 0.3 * torch.randn((b, 480000), generator=gen, device="cuda")
+        before = stats.launches
         got = mel.log_mel(wav, mel_cfg)
+        got2 = mel.log_mel(wav, mel_cfg)
+        require(stats.launches == before + 2, f"K3 B={b}: one launch per call")
         want = mel.log_mel_torch(wav, mel_cfg)
         torch.cuda.synchronize()
         require(got.shape == (b, 3000, mel_cfg.n_mels),
                 f"K3 shape {tuple(got.shape)}")
+        require(torch.equal(got, got2), f"K3 B={b}: two launches differ")
         err = (got - want).abs().max().item()
-        log(f"K3 B={b} max_abs_err={err:.3e} (tol {K3_TOL})")
+        log(f"K3 B={b} max_abs_err={err:.3e} (tol {K3_TOL}); two launches "
+            f"bit-equal")
         require(err <= K3_TOL, f"K3 B={b}: {err} > {K3_TOL}")
         worst = max(worst, err)
-        ms = time_ms(lambda: mel.log_mel(wav, mel_cfg))
+        if b == 4:
+            golden, ratio = _k3_golden_err(mel, mel_cfg, got, wav)
+            plain_golden, _ = _k3_golden_err(mel, mel_cfg, want, wav)
+            log(f"K3 B=4 against reference_log_mel (float64): kernel "
+                f"{golden:.3e} ({ratio:.3f} of 2e-5 + 1e-5 |ref|), plain "
+                f"{plain_golden:.3e}")
+            require(ratio <= 1.0, f"K3 B=4: {golden} off the golden")
+
+        def call():
+            return mel.log_mel(wav, mel_cfg)
+
+        def stft():
+            return torch.stft(wav, mel_cfg.n_fft, mel_cfg.hop_length,
+                              window=window, center=True, pad_mode="reflect",
+                              return_complex=True)
+        ms = time_ms(call)
         plain = time_ms(lambda: mel.log_mel_torch(wav, mel_cfg))
-        # float32 operations the function needs per frame: the window, a
-        # real FFT of n_fft padded to a power of two (2.5 N log2 N), the
-        # power spectrum and the filterbank product
-        n_freqs, frames = mel_cfg.n_fft // 2 + 1, got.shape[1]
-        n = 1 << (mel_cfg.n_fft - 1).bit_length()
-        flops = b * frames * (mel_cfg.n_fft + 2.5 * n * math.log2(n)
-                              + 3 * n_freqs + 2 * n_freqs * mel_cfg.n_mels)
-        bnd = bound(nbytes(wav, got), flops, F32_FLOPS)
-        log(f"K3 B={b} time: kernel {ms:.4f} ms, plain {plain:.4f} ms; "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]}, {flops / 1e9:.2f} GFLOP)")
-        results[b]["log_mel"] = {"ms": ms, "plain_ms": plain,
-                                 "library_ms": None, "bound_ms": bnd[0],
-                                 "bound_by": bnd[1]}
-    return worst
+        events = kernel_events(call)
+        k3_us = [us for name, us in events if "mel_kernel" in name]
+        require(len(k3_us) == 20, f"K3 B={b}: {len(k3_us) / 20:g} K3 "
+                f"kernels per call")
+        pads = sorted({name for name, _ in events if "pad" in name.lower()})
+        require(not pads, f"K3 B={b}: padding kernels {pads}")
+        dev_ms = sum(k3_us) / 20 / 1e3
+        call_ms = sum(us for _, us in events) / 20 / 1e3
+        call_kernels = len(events) / 20
+        stft_ms, _ = device_profile(stft)
+        bnd = k3_bound(mel_cfg, mel, b, wav.shape[1])
+        log(f"K3 B={b} time: per call {ms:.4f} ms, plain {plain:.4f} ms; "
+            f"device time of K3 {dev_ms:.4f} ms (one kernel a call), of the "
+            f"whole call {call_ms:.4f} ms in {call_kernels:g} kernels; "
+            f"torch.stft {stft_ms:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}, "
+            f"{100 * bnd[0] / dev_ms:.1f}% of it by device time)")
+        results.setdefault(b, {})["log_mel"] = {
+            "ms": ms, "plain_ms": plain, "library_ms": None,
+            "device_ms": dev_ms, "kernels_per_call": len(k3_us) / 20,
+            "call_device_ms": call_ms, "call_kernels": call_kernels,
+            "stft_ms": stft_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
+    # UrbanSound's preset (n_fft 1024, hop 512, 64 htk bands, log(x+1e-9))
+    # on a batch of 16 clips of 4 s at 22050 Hz
+    us_cfg = type(mel_cfg).urbansound()
+    wav = 0.3 * torch.randn((16, 88200), generator=gen, device="cuda")
+    got = mel.log_mel(wav, us_cfg)
+    want = mel.log_mel_torch(wav, us_cfg)
+    torch.cuda.synchronize()
+    require(got.shape == (16, 173, 64), f"K3 UrbanSound shape {got.shape}")
+    err = (got - want).abs().max().item()
+    golden, ratio = _k3_golden_err(mel, us_cfg, got, wav)
+    log(f"K3 UrbanSound B=16: max_abs_err={err:.3e} (tol {K3_TOL}); against "
+        f"reference_log_mel {golden:.3e} ({ratio:.3f} of 2e-5 + 1e-5 |ref|)")
+    require(err <= K3_TOL and ratio <= 1.0, "K3 UrbanSound preset")
+    return max(worst, err)
 
 
 # ---------------------------------------------------------------------------

@@ -50,17 +50,18 @@ REPS = 50
 FLUSH_BYTES = 256 << 20
 
 
-def build_other(_build, other: str) -> ctypes.CDLL:
-    """The other checkout's csrc/decode_logits.cu, built into this
-    checkout's build directory."""
+def build_other(_build, other: str, name: str = "decode_logits"
+                ) -> ctypes.CDLL:
+    """The other checkout's csrc/<name>.cu, built into this checkout's
+    build directory."""
     csrc = os.path.join(other, "audio_transformers_tpu_torch", "csrc")
-    src = os.path.join(csrc, "decode_logits.cu")
+    src = os.path.join(csrc, f"{name}.cu")
     h = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode())
-    for name in sorted(os.listdir(csrc)):
-        if name == "decode_logits.cu" or name.endswith(".cuh"):
-            with open(os.path.join(csrc, name), "rb") as f:
+    for fname in sorted(os.listdir(csrc)):
+        if fname == f"{name}.cu" or fname.endswith(".cuh"):
+            with open(os.path.join(csrc, fname), "rb") as f:
                 h.update(f.read())
-    out = _build.BUILD_DIR / f"other-decode_logits-{h.hexdigest()[:16]}.so"
+    out = _build.BUILD_DIR / f"other-{name}-{h.hexdigest()[:16]}.so"
     if not out.exists():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc,

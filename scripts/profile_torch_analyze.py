@@ -17,8 +17,9 @@ After one warm-up call it prints:
     call runs (K1 decode cross-attention, K2 greedy step, K3 log-mel),
     matched by kernel name, beside the wrappers' launch counters;
   - the host time of one K1 wrapper call at the path's shapes (bf16 q and
-    K/V, 6 heads of 64, T = 1500; B = 1, 4, 16): the host clock around 200
-    calls with no sync between them, the median of five such rounds.
+    K/V, 6 heads of 64, T = 1500; B = 1, 4, 16) and of one `log_mel` call
+    (K3, 30 s windows; B = 1, 4): the host clock around 200 (K1) or 50
+    (K3) calls with no sync between them, the median of five such rounds.
 
 The last line is one JSON object with these numbers. Needs the port's
 CUDA kernels (built on first use) and imports nothing of JAX.
@@ -44,10 +45,26 @@ PORT_KERNELS = {"decode_cross_attention": "dca_",
                 "log_mel": "mel_kernel"}
 
 
-def k1_host_us(torch, calls=200, rounds=5):
-    """{B: host us per K1 wrapper call} at the path's shapes. K1's device
-    time is shorter than a call's host time, and 200 launches do not fill
-    the launch queue, so the host clock reads the wrapper's own work."""
+def host_us(torch, call, calls, rounds=5):
+    """Host us per call(): the host clock around `calls` calls with no
+    sync between them, the median of `rounds` such rounds. The calls must
+    not fill the launch queue, so that the clock reads the host's own
+    work."""
+    call()
+    per_call = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
+def k1_host_us(torch):
+    """{B: host us per K1 wrapper call} at the path's shapes, over 200
+    calls (K1's device time is shorter than a call's host time)."""
     from audio_transformers_tpu_torch.ops import decode_attention as da
     gen = torch.Generator(device="cuda").manual_seed(3)
     out = {}
@@ -56,16 +73,23 @@ def k1_host_us(torch, calls=200, rounds=5):
                                dtype=torch.bfloat16)
                    for shape in ((b, 6, 64), (b, 6, 64, 1500),
                                  (b, 6, 64, 1500)))
-        da.decode_cross_attention(q, k, v)
-        per_call = []
-        for _ in range(rounds):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                da.decode_cross_attention(q, k, v)
-            per_call.append((time.perf_counter() - t0) / calls * 1e6)
-        torch.cuda.synchronize()
-        out[b] = statistics.median(per_call)
+        out[b] = host_us(torch, lambda: da.decode_cross_attention(q, k, v),
+                         200)
+    return out
+
+
+def k3_host_us(torch):
+    """{B: host us per `log_mel` call} on the path's 30 s windows (B = 1
+    and 4), over 50 calls: fewer than the launch queue holds, even with
+    the earlier kernel's padding launch and the whisper floor's."""
+    from audio_transformers_tpu_torch.core import MelConfig
+    from audio_transformers_tpu_torch.ops import mel
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cfg = MelConfig.whisper()
+    out = {}
+    for b in (1, 4):
+        wav = 0.3 * torch.randn((b, 480000), generator=gen, device="cuda")
+        out[b] = host_us(torch, lambda: mel.log_mel(wav, cfg), 50)
     return out
 
 
@@ -114,12 +138,13 @@ def main() -> int:
         port[name] = {"device_ms": sum(ms for ms, _ in hits),
                       "launches": sum(n for _, n in hits),
                       "counter": counters[name]}
-    host_us = k1_host_us(torch)
+    k1_us, k3_us = k1_host_us(torch), k3_host_us(torch)
     result = {
         "card": card, "clip_s": 12.0, "wall_ms": walls,
         "profiled_wall_ms": wall, "device_busy_ms": busy,
         "idle_share": 1.0 - busy / wall, "launches": launches,
-        "port_kernels": port, "k1_host_us_per_call": host_us,
+        "port_kernels": port, "k1_host_us_per_call": k1_us,
+        "k3_host_us_per_call": k3_us,
         "top_kernels": [{"name": n[:90], "ms": ms, "launches": c}
                         for n, (ms, c) in top]}
     print(f"analyze (whisper-tiny, bf16, 12 s clip): wall ms {walls}; "
@@ -130,7 +155,9 @@ def main() -> int:
               f"{r['launches']:.0f} launches (wrapper counter "
               f"{r['counter']})")
     print("  K1 wrapper, host us per call: " + ", ".join(
-        f"B={b} {us:.2f}" for b, us in host_us.items()))
+        f"B={b} {us:.2f}" for b, us in k1_us.items()))
+    print("  log_mel (K3 and the whisper floor), host us per call: "
+          + ", ".join(f"B={b} {us:.2f}" for b, us in k3_us.items()))
     for k in result["top_kernels"]:
         print(f"  {k['ms']:9.3f} ms  {k['launches']:6.0f}x  {k['name']}")
     print(json.dumps(result))

@@ -10,7 +10,9 @@ Tolerances, each against the plain version on the same card:
      2e-2 abs in bfloat16 (one bf16 ulp of the output)
   K2 fused_greedy_step: tokens equal on rows whose plain top-2 gap
      exceeds 1e-3
-  K3 log_mel: 2e-4 abs on the final features (f32 sum order, log10)
+  K3 log_mel: 2e-4 abs on the final features (f32 sum order, log10);
+     and the float64 golden `reference_log_mel` within 2e-5 + 1e-5 |ref|,
+     the tolerance the JAX package's golden test holds
   K4a/b/c flash attention: float32 max|err| <= 2e-5 * max(1, max|plain|)
      (sum order only); bfloat16 within two bf16 ulps at the tensor's
      largest magnitude (bf16 output rounding, p rounded against the
@@ -23,6 +25,7 @@ Tolerances, each against the plain version on the same card:
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -340,23 +343,72 @@ def test_k2_rejects_bad_operands(cuda):
 # --------------------------------------------------------------------------
 
 
+_K3_EPS = MelConfig.whisper().replace(log_mode="log_eps", power=1.0,
+                                      drop_last_frame=False)
+
+
 @pytest.mark.parametrize("cfg,b,n", [
-    (MelConfig.whisper(), 2, 480000),
+    (MelConfig.whisper(), 1, 480000),
+    (MelConfig.whisper(), 4, 480000),
+    (MelConfig.whisper(), 16, 480000),
     (MelConfig.whisper(), 3, 4000),
     (MelConfig.whisper(), 1, 300),
-    (MelConfig.whisper().replace(log_mode="log_eps", drop_last_frame=False,
-                                 power=1.0), 2, 16000),
+    (MelConfig.whisper(), 4, 16001),      # rows at every 16-byte offset
+    (_K3_EPS, 2, 16000),
+    (MelConfig.urbansound(), 2, 88200),
+    (MelConfig.urbansound(), 16, 88200),  # above 48 KB of shared memory
+    (MelConfig.urbansound(), 3, 1000),
 ])
 def test_k3_matches_plain(cuda, cfg, b, n):
-    wav = 0.3 * torch.randn((b, n), generator=_gen(3), device=cuda)
+    # the kernel reads the caller's storage as it lies: a view 3 floats
+    # past a 16-byte boundary
+    flat = 0.3 * torch.randn(b * n + 3, generator=_gen(3), device=cuda)
+    wav = flat[3:].view(b, n)
     before = _build.STATS["log_mel"].launches
     got = mel.log_mel(wav, cfg)
-    assert _build.STATS["log_mel"].launches == before + 1
+    got2 = mel.log_mel(wav, cfg)
+    assert _build.STATS["log_mel"].launches == before + 2
     want = mel.log_mel_torch(wav, cfg)
     torch.cuda.synchronize()
-    assert got.shape == want.shape == (b, cfg.num_frames(max(n, 401)),
+    assert got.shape == want.shape == (b, cfg.num_frames(max(n, cfg.n_fft + 1)),
                                        cfg.n_mels)
     assert (got - want).abs().max().item() <= K3_TOL
+    assert torch.equal(got, got2)
+    # the float64 golden, at the tolerance the JAX package is held to; a
+    # clip no longer than n_fft is zero-padded to n_fft + 1 first
+    clips = wav.cpu().numpy()
+    if n <= cfg.n_fft:
+        clips = np.pad(clips, ((0, 0), (0, cfg.n_fft + 1 - n)))
+    ref = np.stack([mel.reference_log_mel(c, cfg) for c in clips])
+    np.testing.assert_allclose(got.cpu().numpy(), ref, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cfg", [MelConfig.whisper(),
+                                 MelConfig.urbansound()],
+                         ids=["whisper", "urbansound"])
+def test_k3_every_block_size_gives_the_same_bits(cuda, cfg):
+    # blocks start at even frames at every even size, so each frame's FFT
+    # partner, and with it every bit of the features, is the same whatever
+    # mel_plan picks
+    from audio_transformers_tpu_torch.ops import mel_cuda as mc
+    wav = 0.3 * torch.randn((2, 16001), generator=_gen(4), device=cuda)
+    t_full = 16001 // cfg.hop_length + 1
+    sizes = [f for f in range(2, mc.MAX_FRAMES + 1, 2)
+             if mc.mel_layout(f, cfg.hop_length, cfg.n_fft)[1]
+             <= mc._SMEM_LIMIT]
+    outs = [mc._launch(wav, cfg, t_full, fpb=f) for f in sizes]
+    assert len(outs) >= 4
+    for f, out in zip(sizes, outs):
+        assert torch.equal(out, outs[0]), f
+
+
+def test_k3_rejects_what_it_cannot_take(cuda):
+    wav = torch.zeros((1, 4000), device=cuda)
+    for bad in (MelConfig.whisper().replace(n_fft=401),
+                MelConfig.whisper().replace(power=3.0),
+                MelConfig.whisper().replace(pad_mode="constant")):
+        with pytest.raises(ValueError):
+            mel.log_mel(wav, bad)
 
 
 # --------------------------------------------------------------------------

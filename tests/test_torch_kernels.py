@@ -25,6 +25,7 @@ from audio_transformers_tpu_torch.ops import _build
 from audio_transformers_tpu_torch.ops import decode_attention as da
 from audio_transformers_tpu_torch.ops import decode_logits as dl
 from audio_transformers_tpu_torch.ops import mel
+from audio_transformers_tpu_torch.ops import mel_cuda as mc
 from audio_transformers_tpu_torch.ops.mel_cuda import log_mel_cuda
 
 K1_TOL = 1e-5
@@ -368,6 +369,177 @@ def test_log_mel_precision_names():
                        mel.log_mel(wav, cfg, precision="highest"))
     with pytest.raises(ValueError):
         mel.log_mel(wav, cfg, precision="low")
+
+
+def _radix_split(r):
+    """The first factor A of the kernel's in-register DFT of r points
+    (`Split` in csrc/mel.cu): 2, 3, 4 and 5 are direct (A = r); else 4, 5,
+    3 or 2, the first that divides r."""
+    if r in (2, 3, 4, 5):
+        return r
+    return next(a for a in (4, 5, 3, 2) if r % a == 0)
+
+
+def _dft_emulated(v, r, rt, tw):
+    """The kernel's in-register DFT of r points along axis 0 of v, in
+    complex64, with tw[q] = W_rt^q from the float32 roots: direct for 2, 3,
+    4, 5, else split r = a * b as the kernel does (a-point DFTs down the
+    columns, the twiddle W_r^(n2 k1), b-point DFTs along the rows).
+    Natural order out."""
+    a = _radix_split(r)
+    if a == r:
+        k = np.arange(r)
+        w = tw[(np.outer(k, k) % r) * (rt // r)]
+        return np.einsum("kn,n...->k...", w, v).astype(np.complex64)
+    b = r // a
+    x = _dft_emulated(v.reshape(a, b, *v.shape[1:]), a, rt, tw)
+    k1, n2 = np.meshgrid(np.arange(a), np.arange(b), indexing="ij")
+    w = tw[((k1 * n2) % r) * (rt // r)]
+    x = (x * w.reshape(a, b, *([1] * (v.ndim - 1)))).astype(np.complex64)
+    y = _dft_emulated(np.swapaxes(x, 0, 1), b, rt, tw)        # [k2, k1]
+    return y.reshape(r, *v.shape[1:])                          # k1 + a k2
+
+
+def _fft_emulated(z, n_fft):
+    """The kernel's two passes over z (n_fft, ...) complex64, with the
+    tables the wrapper makes: z[n2 + R2 n1] -> R1-point DFTs over n1,
+    times ptw[k1 R2 + n2], R2-point DFTs over n2 -> Z[k1 + R1 k2]."""
+    r1, r2 = mc.fft_plan(n_fft)
+    roots, ptw = mc.fft_tables(n_fft)
+    x = _dft_emulated(z.reshape(r1, r2, *z.shape[1:]), r1, r1, roots[:r1])
+    x = (x * ptw.reshape(r1, r2, *([1] * (z.ndim - 1)))).astype(np.complex64)
+    y = _dft_emulated(np.swapaxes(x, 0, 1), r2, r2, roots[r1:])  # [k2, k1]
+    return y.reshape(n_fft, *z.shape[1:])
+
+
+@pytest.mark.parametrize("n_fft", [400, 1024])
+def test_k3_fft_plan_matches_rfft(n_fft):
+    rng = np.random.default_rng(n_fft)
+    frames = rng.standard_normal((n_fft, 6)).astype(np.float32)
+    frames *= mel.hann_window(n_fft)[:, None]
+    # two frames as one complex signal, split by conjugate symmetry
+    z = (frames[:, 0::2] + 1j * frames[:, 1::2]).astype(np.complex64)
+    zk = _fft_emulated(z, n_fft)[: n_fft // 2 + 1]
+    zm = _fft_emulated(z, n_fft)[(-np.arange(n_fft // 2 + 1)) % n_fft]
+    spec_a = 0.5 * (zk + np.conj(zm))
+    spec_b = (zk - np.conj(zm)) / 2j
+    got = np.stack([spec_a, spec_b], axis=-1).reshape(n_fft // 2 + 1, 6)
+    want = np.fft.rfft(frames.astype(np.float64), axis=0)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("n_fft", [401, 2048, 512, 300])
+def test_k3_fft_plan_raises_for_what_it_cannot_factor(n_fft):
+    with pytest.raises(ValueError):
+        mc.fft_plan(n_fft)
+    with pytest.raises(ValueError):
+        mc.mel_plan(1, 3001, n_fft, 160, 132)
+
+
+def test_k3_plan_constants_match_the_kernel_source():
+    src = (_build.CSRC / "mel.cu").read_text()
+    cases = dict(re.findall(
+        r"case (\d+):(?:\s*//[^\n]*)?\s+return launch<(\d+, \d+)>", src))
+    assert {int(k): tuple(map(int, v.split(", ")))
+            for k, v in cases.items()} == mc.FFT_SPLITS
+    for n_fft, (r1, r2) in mc.FFT_SPLITS.items():
+        assert r1 * r2 == n_fft
+    # the row strides of the shared-memory layout that mel_layout makes
+    assert "constexpr int YS = R2 | 1;" in src
+    assert "constexpr int PS = N / 2 + 1;" in src
+    # Split<R>: direct for 2-5, else the first of 4, 5, 3, 2 dividing R
+    assert ": R % 4 == 0                          ? 4" in src
+    assert [_radix_split(r) for r in (2, 3, 4, 5, 8, 16, 20, 25, 32)] \
+        == [2, 3, 4, 5, 4, 4, 4, 5, 4]
+
+
+@pytest.mark.parametrize("cfg_name", ["whisper", "urbansound"])
+def test_k3_bands_cover_the_filterbank(cfg_name):
+    cfg = getattr(MelConfig, cfg_name)()
+    fb = mel.mel_filter_bank(cfg)
+    band, weights = mc.mel_bands(fb)
+    lo, cnt, off = band.reshape(3, cfg.n_mels)
+    dense = np.zeros_like(fb)
+    for m in range(cfg.n_mels):
+        dense[lo[m]:lo[m] + cnt[m], m] = weights[off[m]:off[m] + cnt[m]]
+    assert np.array_equal(dense, fb)      # every nonzero, nothing else
+    assert len(weights) < 0.07 * fb.size
+    # the kernel's sum over a band's bins, in ascending order, has the
+    # bits of the sum over every bin in the same order
+    power = np.random.default_rng(0).exponential(
+        size=(8, cfg.n_freqs)).astype(np.float32)
+    for m in range(cfg.n_mels):
+        sparse = np.zeros(8, np.float32)
+        full = np.zeros(8, np.float32)
+        for f in range(cfg.n_freqs):
+            full = full + power[:, f] * fb[f, m]
+        for i in range(cnt[m]):
+            sparse = sparse + power[:, lo[m] + i] * weights[off[m] + i]
+        assert full.dtype == sparse.dtype == np.float32
+        assert np.array_equal(full, sparse), m
+
+
+def _kernel_span(row, n, cfg, t0, fpb, t_total, mis):
+    """The kernel's shared-memory span of the block at frame t0, for a row
+    whose start lies `mis` floats past a 16-byte boundary: 16-byte chunks
+    wholly inside the clip are copied, the rest of each chunk goes through
+    the reflect / zero-pad index map. Returns span sample i at [i]."""
+    hop, n_fft = cfg.hop_length, cfg.n_fft
+    pad = n_fft // 2 if cfg.center else 0
+    nf = min(fpb, t_total - t0)
+    span = (nf - 1) * hop + n_fft
+    j0 = t0 * hop - pad
+    shift = (mis + j0) % 4
+    length = n if n > n_fft else n_fft + 1
+    xs = np.full(4 * ((span + shift + 3) // 4), np.nan, np.float32)
+    for q in range(len(xs) // 4):
+        j = j0 - shift + 4 * q
+        if j >= 0 and j + 4 <= n:
+            xs[4 * q: 4 * q + 4] = row[j: j + 4]
+            continue
+        for r in range(4):
+            s = 4 * q + r
+            if s < shift or s >= span + shift:
+                continue
+            jj = j + r
+            jj = -jj if jj < 0 else 2 * (length - 1) - jj if jj >= length \
+                else jj
+            xs[s] = row[jj] if jj < n else 0.0
+    return xs[shift: shift + span]
+
+
+@pytest.mark.parametrize("n", [300, 401, 4000, 480000])
+@pytest.mark.parametrize("center", [True, False])
+def test_k3_load_index_map_matches_prepare_waveform(n, center):
+    cfg = MelConfig.whisper().replace(center=center)
+    row = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    want = mel.prepare_waveform(torch.from_numpy(row)[None], cfg)[0].numpy()
+    t_total = (len(want) - cfg.n_fft) // cfg.hop_length + 1
+    fpb = mc.mel_plan(1, t_total, cfg.n_fft, cfg.hop_length, 132)
+    starts = range(0, t_total, fpb)
+    if n == 480000:   # the blocks at the clip's two ends and one inside
+        starts = [0, fpb * (t_total // (2 * fpb)), starts[-1]]
+    for t0 in starts:
+        for mis in range(4):
+            got = _kernel_span(row, n, cfg, t0, fpb, t_total, mis)
+            lo = t0 * cfg.hop_length
+            assert np.array_equal(got, want[lo: lo + len(got)]), (t0, mis)
+
+
+@pytest.mark.parametrize("n_fft,hop", [(400, 160), (1024, 512)])
+@pytest.mark.parametrize("b,t_total", [(1, 3001), (4, 3001), (16, 3001),
+                                       (1, 1), (3, 7), (2, 101)])
+def test_k3_plan_covers_every_frame_once(n_fft, hop, b, t_total):
+    fpb = mc.mel_plan(b, t_total, n_fft, hop, 132)
+    assert fpb % 2 == 0 and 2 <= fpb <= mc.MAX_FRAMES
+    assert mc.mel_layout(fpb, hop, n_fft)[1] <= mc._SMEM_LIMIT
+    seen = np.zeros(t_total, np.int64)
+    for t0 in range(0, t_total, fpb):                 # the kernel's blocks
+        seen[t0: t0 + min(fpb, t_total - t0)] += 1
+    assert (seen == 1).all()
+    if b * t_total >= 2 * 132:      # every SM gets a block
+        assert b * -(-t_total // fpb) >= 132
 
 
 # --------------------------------------------------------------------------
