@@ -7,7 +7,8 @@
 #include <stdint.h>
 
 // dtype codes passed by the Python wrappers
-enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
+// (kI4: int8 bytes holding two 4-bit values each, nibble-packed along time)
+enum DType { kF32 = 0, kBF16 = 1, kI8 = 2, kI4 = 3 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {

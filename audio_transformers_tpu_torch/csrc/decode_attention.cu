@@ -8,6 +8,9 @@
 //   none: k, v float32 or bf16
 //   int8: k, v int8 with k_scale (BH, T) folded into the logit row and
 //         v_scale (BH, hd) into the output row; q and p stay float32.
+//   int4: k, v int8 (BH, hd, T/2), two 4-bit keys a byte (key 2t in the
+//         low nibble of byte t, 2t+1 in the high one), k_scale split
+//         even/odd as (BH, 2, T/2), v_scale (BH, hd); q and p as int8.
 //
 // Bound on the H100: device memory. A call reads all of K and V once
 // (whisper-tiny, T = 1500, bf16: 384 KB per (b, h)) for 4 * hd flops per
@@ -45,11 +48,21 @@
 // 128). The copies' byte offsets are 32-bit, and K and V must share their
 // offset from the 16-byte grid (both hold for the path's tensors).
 //
-// Room for int4 (nibble-packed along time, even/odd K scales): a lane's
-// 16 bytes then hold 16 even and 16 odd keys, two half-chunks that update
-// one (m, l, acc) as the reference's even/odd half-blocks do.
+// int4 runs the same loop over packed columns (bytes): the chunk, the
+// sub-tile (256 bytes of a channel row, 512 keys), the copies and the
+// funnel shift of misaligned rows (T = 1500 puts a 750-byte row 14 bytes
+// off the grid) are int8's. A lane's 16 bytes hold 16 even and 16 odd
+// keys; the block takes the even (low-nibble) half and then the odd one,
+// 16 values at a time as int8 does, each half updating the one (m, l,
+// acc) as the reference's even/odd half-blocks do, so the registers stay
+// int8's. Key 2i takes k_scale[bh, 0, i], key 2i + 1 k_scale[bh, 1, i],
+// and the mask tests the true position (2i or 2i + 1 against t_valid), so
+// an odd t_valid masks the high nibble of the last byte. The split plan
+// counts whole bytes: at T = 1500 a (b, h) has 750 of them, 3 splits.
 
 #include <limits.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -58,6 +71,12 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
+// a byte of two int4 keys: the storage unit (column) of the int4 mode
+struct int4x2 {
+  int8_t b;
+};
+
+// columns of the key layout in 16 bytes (int4: 16 bytes, 32 keys)
 template <typename KT>
 __host__ __device__ constexpr int vec_keys() {
   return 16 / (int)sizeof(KT);
@@ -103,6 +122,19 @@ __device__ __forceinline__ void unpack(float (&f)[16], uint4 x) {
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       f[4 * i + j] = (float)(int8_t)(uint8_t)(w[i] >> (8 * j));
+}
+
+// 16 bytes of int4 pairs as the 16 floats of one half: the low nibbles
+// (even keys) for h = 0, the high ones (odd keys) for h = 1,
+// sign-extended from 4 bits.
+__device__ __forceinline__ void unpack_half(float (&f)[16], uint4 x, int h) {
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+  const int sh = 4 * h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[4 * i + j] = (float)((int)(((w[i] >> (8 * j + sh)) & 0xFu) ^ 8u) - 8);
 }
 
 // Lane g's 16 bytes of keys [k0 + g * VEC, +VEC) of a row copied into a
@@ -160,6 +192,7 @@ __host__ __device__ constexpr size_t smem_bytes(int hd) {
 
 // Three blocks per SM, as many as the ring of hd = 64 lets share one (so
 // that the path's 288-block grids run in one wave): at most 80 registers.
+// t_len and chunk count columns of the layout (int4: bytes), t_valid keys.
 template <typename QT, typename KT>
 __global__ void __launch_bounds__(kThreads, 3)
     dca_split(const QT* __restrict__ q, const KT* __restrict__ k,
@@ -167,8 +200,10 @@ __global__ void __launch_bounds__(kThreads, 3)
               const float* __restrict__ v_scale, QT* __restrict__ out,
               float* __restrict__ part, int* __restrict__ count, int hd,
               int t_len, int t_valid, int chunk, float scale) {
+  constexpr bool kInt4 = std::is_same<KT, int4x2>::value;
+  constexpr int kHalves = kInt4 ? 2 : 1;  // int4: even keys, then odd
   constexpr int VEC = vec_keys<KT>();
-  constexpr int TK = VEC * kLanes;       // keys per sub-tile
+  constexpr int TK = VEC * kLanes;       // columns per sub-tile
   constexpr int kRowsW = 32 / kLanes;    // channel rows per warp
   constexpr int kRowsB = kWarps * kRowsW;  // channel rows per pass
   constexpr int kMaxPasses = 128 / kRowsB;
@@ -186,8 +221,9 @@ __global__ void __launch_bounds__(kThreads, 3)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane & (kLanes - 1), r = lane / kLanes;
   const int passes = (hd + kRowsB - 1) / kRowsB;
-  const int c_begin = split * chunk;
-  const int c_end = min(c_begin + chunk, t_valid);
+  const int c_begin = split * chunk;  // columns
+  const int c_end =
+      min(c_begin + chunk, kInt4 ? (t_valid + 1) / 2 : t_valid);
   const int n_sub = (c_end - c_begin + TK - 1) / TK;
   const char* kb = reinterpret_cast<const char*>(k + bh * hd * t_len);
   const char* vb = reinterpret_cast<const char*>(v + bh * hd * t_len);
@@ -262,87 +298,101 @@ __global__ void __launch_bounds__(kThreads, 3)
     const uint4* kt = ring + (it % kStages) * 2 * hd * kSeg;
     const uint4* vt = kt + hd * kSeg;
     const int k0 = c_begin + it * TK, t0 = k0 + g * VEC;
-    const bool full = k0 + TK <= c_end;  // no key of the sub-tile masked
+    const bool full = k0 + TK <= c_end;  // no column of the sub-tile masked
 
-    // scores of keys [t0, t0 + VEC) over this lane's channels
-    float sc[VEC];
+    // int4: the even keys of the sub-tile, then the odd ones, each half
+    // one online-softmax update; else one pass
+#pragma unroll 1
+    for (int h = 0; h < kHalves; ++h) {
+      // scores of columns [t0, t0 + VEC) over this lane's channels
+      float sc[VEC];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) sc[j] = 0.f;
+      for (int j = 0; j < VEC; ++j) sc[j] = 0.f;
 #pragma unroll
-    for (int p = 0; p < kMaxPasses; ++p) {
-      const int d = p * kRowsB + warp + kWarps * r;
-      if (p >= passes || d >= hd) break;
-      float kf[VEC];
-      unpack(kf, keys_at(kt + d * kSeg, g, mis[p]));
+      for (int p = 0; p < kMaxPasses; ++p) {
+        const int d = p * kRowsB + warp + kWarps * r;
+        if (p >= passes || d >= hd) break;
+        float kf[VEC];
+        if constexpr (kInt4)
+          unpack_half(kf, keys_at(kt + d * kSeg, g, mis[p]), h);
+        else
+          unpack(kf, keys_at(kt + d * kSeg, g, mis[p]));
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) sc[j] = fmaf(qd[p], kf[j], sc[j]);
-    }
-#pragma unroll
-    for (int o = 16; o >= kLanes; o >>= 1)  // over the warp's rows
-#pragma unroll
-      for (int j = 0; j < VEC; ++j)
-        sc[j] += __shfl_xor_sync(0xffffffffu, sc[j], o);
-    if (r == 0) {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) red[warp * TK + g * VEC + j] = sc[j];
-    }
-    __syncthreads();
-    // one thread per key (whole warps: TK is a multiple of 32): the sum
-    // over the warps, k_scale, the scale, the mask; then p against the
-    // new running max, which every thread takes from the warps' maxima
-    float s = -INFINITY;
-    if (tid < TK) {
-      const int t = k0 + tid;
-      if (t < c_end) {
-        s = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += red[w * TK + tid];
-        if (k_scale != nullptr) s *= k_scale[bh * t_len + t];
-        s *= scale;
+        for (int j = 0; j < VEC; ++j) sc[j] = fmaf(qd[p], kf[j], sc[j]);
       }
-      const float wm = warp_max(s);
-      if (lane == 0) wmax[warp] = wm;
-    }
-    __syncthreads();
-    float m_new = m_run;
 #pragma unroll
-    for (int w = 0; w < TK / 32; ++w) m_new = fmaxf(m_new, wmax[w]);
-    const float alpha = expf(m_run - m_new);  // 0 on the first sub-tile
-    m_run = m_new;
-    if (tid < TK) {
-      const float pt = expf(s - m_new);
-      ps[tid] = pt;
-      const float wsm = warp_sum(pt);
-      if (lane == 0) wsum[warp] = wsm;
-    }
-    __syncthreads();
-    float l_tile = 0.f;
-#pragma unroll
-    for (int w = 0; w < TK / 32; ++w) l_tile += wsum[w];
-    l_run = l_run * alpha + l_tile;
-
-    // this lane's share of acc[d] = alpha acc[d] + p . v over the
-    // sub-tile (summed over the row's lanes once, at the end); keys at or
-    // past c_end may hold anything (a copied segment runs past them)
-    float pj[VEC];
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) pj[j] = ps[g * VEC + j];
-#pragma unroll
-    for (int p = 0; p < kMaxPasses; ++p) {
-      const int d = p * kRowsB + warp + kWarps * r;
-      if (p >= passes || d >= hd) break;
-      float vf[VEC];
-      unpack(vf, keys_at(vt + d * kSeg, g, mis[p]));
-      float a = 0.f;
-      if (full) {
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) a = fmaf(pj[j], vf[j], a);
-      } else {
+      for (int o = 16; o >= kLanes; o >>= 1)  // over the warp's rows
 #pragma unroll
         for (int j = 0; j < VEC; ++j)
-          a = fmaf(pj[j], t0 + j < c_end ? vf[j] : 0.f, a);
+          sc[j] += __shfl_xor_sync(0xffffffffu, sc[j], o);
+      if (r == 0) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) red[warp * TK + g * VEC + j] = sc[j];
       }
-      acc[p] = acc[p] * alpha + a;
+      __syncthreads();
+      // one thread per column (whole warps: TK is a multiple of 32): the
+      // sum over the warps, k_scale, the scale, the mask at the key's true
+      // position; then p against the new running max, which every thread
+      // takes from the warps' maxima
+      float s = -INFINITY;
+      if (tid < TK) {
+        const int t = k0 + tid;
+        if (t < c_end && (!kInt4 || 2 * t + h < t_valid)) {
+          s = 0.f;
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) s += red[w * TK + tid];
+          if (k_scale != nullptr)
+            s *= k_scale[(bh * kHalves + h) * t_len + t];
+          s *= scale;
+        }
+        const float wm = warp_max(s);
+        if (lane == 0) wmax[warp] = wm;
+      }
+      __syncthreads();
+      float m_new = m_run;
+#pragma unroll
+      for (int w = 0; w < TK / 32; ++w) m_new = fmaxf(m_new, wmax[w]);
+      const float alpha = expf(m_run - m_new);  // 0 on the first update
+      m_run = m_new;
+      if (tid < TK) {
+        const float pt = expf(s - m_new);
+        ps[tid] = pt;
+        const float wsm = warp_sum(pt);
+        if (lane == 0) wsum[warp] = wsm;
+      }
+      __syncthreads();
+      float l_tile = 0.f;
+#pragma unroll
+      for (int w = 0; w < TK / 32; ++w) l_tile += wsum[w];
+      l_run = l_run * alpha + l_tile;
+
+      // this lane's share of acc[d] = alpha acc[d] + p . v over the
+      // sub-tile (summed over the row's lanes once, at the end); columns
+      // at or past c_end may hold anything (a copied segment runs past
+      // them)
+      float pj[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) pj[j] = ps[g * VEC + j];
+#pragma unroll
+      for (int p = 0; p < kMaxPasses; ++p) {
+        const int d = p * kRowsB + warp + kWarps * r;
+        if (p >= passes || d >= hd) break;
+        float vf[VEC];
+        if constexpr (kInt4)
+          unpack_half(vf, keys_at(vt + d * kSeg, g, mis[p]), h);
+        else
+          unpack(vf, keys_at(vt + d * kSeg, g, mis[p]));
+        float a = 0.f;
+        if (full) {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) a = fmaf(pj[j], vf[j], a);
+        } else {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j)
+            a = fmaf(pj[j], t0 + j < c_end ? vf[j] : 0.f, a);
+        }
+        acc[p] = acc[p] * alpha + a;
+      }
     }
   }
   cp_async_wait<0>();
@@ -404,8 +454,11 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
            int hd, int t_len, int t_valid, int chunk, int splits,
            float scale, cudaStream_t stream) {
   constexpr int TK = vec_keys<KT>() * kLanes;
-  if (chunk < TK || chunk % TK != 0 || splits < 1 ||
-      (splits - 1) * chunk >= t_valid || splits * chunk < t_valid ||
+  // the columns that hold a valid key
+  const int cols = std::is_same<KT, int4x2>::value ? (t_valid + 1) / 2
+                                                   : t_valid;
+  if (chunk < TK || chunk % TK != 0 || splits < 1 || cols > t_len ||
+      (splits - 1) * chunk >= cols || splits * chunk < cols ||
       hd < 1 || hd > 128 || splits > merge_cap(hd) || bh < 1 ||
       (((uintptr_t)k ^ (uintptr_t)v) & 15) != 0 ||
       (size_t)hd * t_len * sizeof(KT) > (size_t)INT_MAX)
@@ -439,16 +492,20 @@ int dispatch_kv(int kv_dtype, const void* q, const void* k, const void* v,
     case kI8:
       return launch<QT, int8_t>(q, k, v, ks, vs, out, part, count, bh, hd,
                                 t_len, t_valid, chunk, splits, scale, stream);
+    case kI4:
+      return launch<QT, int4x2>(q, k, v, ks, vs, out, part, count, bh, hd,
+                                t_len, t_valid, chunk, splits, scale, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// k_scale and v_scale are null in mode none. part is float32 scratch of
-// bh * splits * (hd + 2); count is int32 of bh, zero before the launch and
-// left zero after it. chunk and splits come from split_plan. Returns
-// cudaGetLastError().
+// k_scale and v_scale are null in mode none. t_len and chunk count columns
+// of the layout (int4, kv_dtype kI4: packed bytes, two keys each), t_valid
+// keys. part is float32 scratch of bh * splits * (hd + 2); count is int32
+// of bh, zero before the launch and left zero after it. chunk and splits
+// come from split_plan. Returns cudaGetLastError().
 extern "C" int decode_cross_attention(const void* q, const void* k,
                                       const void* v, const void* k_scale,
                                       const void* v_scale, void* out,

@@ -5,9 +5,12 @@ HF `BeamSearchScorer` semantics (transformers/generation/beam_search.py),
 held token for token to the reference and, through it, to HF
 `generate(num_beams=N)`:
 
-  - scores are log-softmaxed BEFORE the logit processors; suppress and
-    begin-suppress REPLACE the masked log-probs by NEG_INF, the repetition
-    penalty acts on log-probs, the no-repeat-ngram ban skips finished rows;
+  - scores are log-softmaxed BEFORE the logit processors
+    (`decode._process_logits`); suppress and begin-suppress REPLACE the
+    masked log-probs by NEG_INF, the repetition penalty acts on log-probs,
+    the no-repeat-ngram ban skips finished rows, and with
+    `return_timestamps` the whisper timestamp rule, its probability rule
+    included, acts on the log-probs;
   - 2N candidates per step, in lax.top_k's stable first-occurrence order;
     EOS candidates ranked in the top N retire to a kept-N hypothesis set
     with replace-the-worst updates (HF BeamHypotheses), non-EOS candidates
@@ -37,6 +40,7 @@ written in place, so it cannot be gathered in place.
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -46,9 +50,8 @@ import torch.nn.functional as F
 from audio_transformers_tpu_torch.core.config import (DecodeConfig,
                                                       WhisperConfig)
 from audio_transformers_tpu_torch.models.whisper import model as wm
-from audio_transformers_tpu_torch.models.whisper.decode import (_SPACE_TOKEN,
-                                                                build_prompt)
-from audio_transformers_tpu_torch.ops import logit_processors as lp
+from audio_transformers_tpu_torch.models.whisper.decode import (
+    _SPACE_TOKEN, _process_logits, build_prompt, suppress_masks)
 from audio_transformers_tpu_torch.ops.decode_logits import pad_vocab
 from audio_transformers_tpu_torch.ops.permute import permute_rows
 
@@ -150,14 +153,6 @@ def _length_norm(generated: int, length_penalty: float) -> float:
     return float(np.float32(max(generated, 1)) ** np.float32(length_penalty))
 
 
-def _vocab_mask(ids, vocab: int, device) -> Optional[torch.Tensor]:
-    if not len(ids):
-        return None
-    mask = torch.zeros(vocab, dtype=torch.bool, device=device)
-    mask[torch.tensor(list(ids), device=device)] = True
-    return mask
-
-
 @torch.no_grad()
 def generate_beam(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
                   enc: torch.Tensor, *,
@@ -181,10 +176,12 @@ def generate_beam(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
         raise ValueError("beam search is deterministic; temperature>0 "
                          "with num_beams>1 is not supported")
     if dcfg.kv_quant == "int4":
-        raise NotImplementedError("int4 cross K/V is not ported yet")
-    if dcfg.return_timestamps:
-        raise NotImplementedError("timestamped beam search is not ported "
-                                  "yet")
+        warnings.warn(
+            "num_beams>1 with kv_quant='int4' dequantizes the cross K/V "
+            "to float32 for the beams' batched products (the nibble-packed "
+            "layout has none) — prefer kv_quant='int8' when beam-decoding "
+            "for speed",
+            stacklevel=2)
     resolve_beam_reorder(dcfg.beam_reorder)
     resolve_beam_topk(dcfg.beam_topk)
     if prompt is None:
@@ -209,6 +206,8 @@ def generate_beam(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
     scores[:, 0] = 0.0
     # beams gate self-KV quantization on beam_self_kv_min (default 0)
     self_quant = dcfg.kv_quant if length >= dcfg.beam_self_kv_min else "none"
+    if self_quant == "int4":
+        self_quant = "int8"      # int4 covers only the cross K/V
     cache = wm.init_cache(cfg, n_rows, max_len=length, dtype=enc.dtype,
                           device=dev, quant=self_quant)
     cross = wm.beam_cross(wm.precompute_cross_attention(
@@ -226,9 +225,7 @@ def generate_beam(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
     rows = torch.arange(n_rows, device=dev)
     b_idx = torch.arange(batch, device=dev)
     beam_iota = torch.arange(n_beams, device=dev)[None, :]
-    static_mask = _vocab_mask(suppress_ids, vocab, dev)
-    begin_mask = _vocab_mask(tuple(suppress_ids) + tuple(begin_suppress_ids),
-                             vocab, dev)
+    masks = suppress_masks(vocab, suppress_ids, begin_suppress_ids, dev)
     # seen-token mask for the repetition penalty, int8 at the padded vocab
     # width so that its rows stay 16-byte aligned for the reorder
     track_seen = dcfg.repetition_penalty != 1.0
@@ -237,8 +234,6 @@ def generate_beam(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
         seen = torch.zeros((n_rows, pad_vocab(vocab)), dtype=torch.int8,
                            device=dev)
         seen[rows, tokens[:, 0]] = 1
-    n_gram = dcfg.no_repeat_ngram_size
-    use_ban = bool(n_gram) and length >= n_gram
 
     # every per-beam buffer, flattened for one reorder launch per step,
     # and a second set of the same buffers to gather into
@@ -262,18 +257,12 @@ def generate_beam(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
         hidden, cache = wm.apply_decoder_step(sp, cfg, tokens[:, i], cache,
                                               cross, beams=n_beams)
         pos = i + 1
-        logp = torch.log_softmax(torch.matmul(hidden.float(), table.t()),
-                                 dim=-1)
-        mask = begin_mask if pos == p_len else static_mask
-        if mask is not None:
-            logp = torch.where(mask, lp.NEG_INF, logp)
-        if track_seen:
-            logp = lp.repetition_penalty(logp, seen[:, :vocab],
-                                         dcfg.repetition_penalty)
-        if use_ban:
-            ban = lp.ngram_ban_mask(tokens, pos, n_gram, vocab,
-                                    done.repeat_interleave(n_beams))
-            logp = torch.where(ban != 0, lp.NEG_INF, logp)
+        logp = _process_logits(
+            torch.log_softmax(torch.matmul(hidden.float(), table.t()),
+                              dim=-1),
+            tokens, pos, cfg, dcfg, p_len, masks,
+            seen=seen[:, :vocab] if track_seen else None,
+            finished=done.repeat_interleave(n_beams))
 
         cand = (logp + scores.reshape(n_rows, 1)).reshape(
             batch, n_beams * vocab)

@@ -1,4 +1,4 @@
-"""KV-cached greedy decoding on PyTorch tensors.
+"""KV-cached greedy and sampled decoding on PyTorch tensors.
 
 The reference (`audio_transformers_tpu/models/whisper/decode.py`) runs the
 whole decode as one compiled `lax.while_loop`. Here the loop runs on the
@@ -9,18 +9,25 @@ written position exists for pooling. Hidden states of positions never
 fed stay zero, as in the reference; the emotion head pools over all of
 them.
 
-Every generated token comes from `ops.decode_logits.fused_greedy_step`:
-the tied vocab projection, the additive suppress vector (static list,
-begin-suppress at the first generated position, padded vocab tail), the
-seen-mask repetition penalty and the no-repeat-ngram ban, then argmax.
-On a CUDA device that is the hand-written kernel; on the CPU its plain
-version. Positions inside the forced prompt take the prompt token and do
-not call it.
+Every greedy token comes from `ops.decode_logits.fused_greedy_step`: the
+tied vocab projection, the additive suppress vector (static list,
+begin-suppress at the first generated position, padded vocab tail, and
+<|notimestamps|> when timestamps are on), the seen-mask repetition
+penalty, the no-repeat-ngram ban and, with `return_timestamps`, the
+whisper timestamp rules (three bounds per row and the probability rule),
+then argmax. On a CUDA device that is the hand-written kernel K2; on the
+CPU its plain version. With `temperature` > 0 a token is drawn instead:
+the full (B, V) float32 logits (`hidden @ table.T`, a plain product, as
+the reference leaves it to XLA) go through `_process_logits`, the
+processor chain with the full timestamp rule, and the draw is
+`argmax(logits / T + g)` with Gumbel noise g (`gumbel_noise`), which is
+what `jax.random.categorical` computes. Positions inside the forced
+prompt take the prompt token.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -72,28 +79,82 @@ def build_prompt(cfg: WhisperConfig, dcfg: DecodeConfig) -> Tuple[int, ...]:
     return tuple(prompt)
 
 
-def _check_supported(dcfg: DecodeConfig) -> None:
-    if dcfg.temperature and dcfg.temperature > 0.0:
-        raise NotImplementedError("temperature sampling is not ported yet")
+def suppress_masks(vocab: int, suppress_ids: Sequence[int],
+                   begin_suppress_ids: Sequence[int], device=None
+                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(static, begin) (vocab,) bool masks for `_process_logits`: the
+    suppress list, and the suppress list with the begin-suppress ids (the
+    first generated position); None where a list is empty."""
+    def mask(ids):
+        if not len(ids):
+            return None
+        m = torch.zeros(vocab, dtype=torch.bool, device=device)
+        m[torch.tensor(list(ids), device=device)] = True
+        return m
+    return (mask(tuple(suppress_ids)),
+            mask(tuple(suppress_ids) + tuple(begin_suppress_ids)))
+
+
+def _process_logits(logits: torch.Tensor, tokens: torch.Tensor, pos: int,
+                    cfg: WhisperConfig, dcfg: DecodeConfig, prompt_len: int,
+                    masks, *, seen: Optional[torch.Tensor] = None,
+                    finished: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reference's processor chain on (B, V) float32 logits (or beam
+    log-probs), in its order: suppress and begin-suppress (`masks`, from
+    `suppress_masks`) set NEG_INF, the repetition penalty over `seen`
+    ((B, V) 0/1: the ids of tokens[:, :pos]; needed when the penalty is
+    on), the no-repeat-ngram ban (rows `finished` ban nothing), and with
+    `return_timestamps` the full whisper timestamp rule."""
+    static_mask, begin_mask = masks
+    mask = begin_mask if pos == prompt_len else static_mask
+    if mask is not None:
+        logits = torch.where(mask, lp.NEG_INF, logits)
+    if dcfg.repetition_penalty != 1.0:
+        logits = lp.repetition_penalty(logits, seen, dcfg.repetition_penalty)
+    n = dcfg.no_repeat_ngram_size
+    if n and tokens.shape[1] >= n:
+        ban = lp.ngram_ban_mask(tokens, pos, n, logits.shape[-1], finished)
+        logits = torch.where(ban != 0, lp.NEG_INF, logits)
     if dcfg.return_timestamps:
-        raise NotImplementedError("timestamped decoding is not ported yet")
-    if dcfg.num_beams > 1:
-        raise NotImplementedError("num_beams > 1 decodes through "
-                                  "beam.generate_beam, not generate")
+        logits = lp.whisper_timestamp_rules(
+            logits, tokens, pos, begin_index=prompt_len,
+            timestamp_begin=cfg.timestamp_begin_id,
+            eos_token_id=cfg.eos_token_id,
+            no_timestamps_token_id=cfg.no_timestamps_token_id)
+    return logits
+
+
+def gumbel_noise(shape: Tuple[int, ...],
+                 generator: torch.Generator) -> torch.Tensor:
+    """float32 Gumbel(0, 1) noise of `shape` on the generator's device:
+    -log(-log(u)) with u uniform in [finfo.tiny, 1), as jax.random.gumbel
+    draws it. The sampling loop of `generate` draws once per step, forced
+    prompt steps included, as the reference splits its key once per step;
+    a test replays the reference's noise by replacing this function."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
 
 
 @torch.no_grad()
 def generate(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
              enc: torch.Tensor, *,
              prompt: Optional[Tuple[int, ...]] = None,
-             suppress_ids: Tuple[int, ...] = ()) -> dict:
-    """Greedy decode from encoder states enc (B, T, D). Returns a dict:
+             suppress_ids: Tuple[int, ...] = (),
+             generator: Optional[torch.Generator] = None) -> dict:
+    """Greedy decode from encoder states enc (B, T, D), or with
+    `dcfg.temperature` > 0 sampled decode, drawing from `generator` (on
+    enc's device; a fresh one seeded 0 by default, as the reference's
+    PRNGKey(0)). Returns a dict:
       tokens  (B, L) int32 - prompt + generated, pad after EOS
       hiddens (B, L, D)    - decoder last hidden per fed position (zero
                              for positions never fed)
       lengths (B,) int32   - valid token count incl. prompt and EOS
     """
-    _check_supported(dcfg)
+    if dcfg.num_beams > 1:
+        raise ValueError("num_beams > 1 decodes through "
+                         "beam.generate_beam, not generate")
+    sampling = bool(dcfg.temperature and dcfg.temperature > 0.0)
     if prompt is None:
         prompt = build_prompt(cfg, dcfg)
     p_len = len(prompt)
@@ -123,11 +184,22 @@ def generate(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
     v_pad = dl.pad_vocab(cfg.vocab_size)
     table_t = torch.zeros((cfg.d_model, v_pad), dtype=enc.dtype, device=dev)
     table_t[:, :cfg.vocab_size] = step_params["embed"]["table"].t()
-    add_base = lp.suppress_vector(v_pad, suppress_ids, vocab=cfg.vocab_size,
+    # the timestamp rules' one position-independent mask: <|notimestamps|>
+    # is always suppressed
+    static_ids = tuple(suppress_ids) + ((cfg.no_timestamps_token_id,)
+                                        if dcfg.return_timestamps else ())
+    add_base = lp.suppress_vector(v_pad, static_ids, vocab=cfg.vocab_size,
                                   device=dev)
-    add_begin = lp.suppress_vector(v_pad, tuple(suppress_ids)
+    add_begin = lp.suppress_vector(v_pad, static_ids
                                    + tuple(begin_suppress_ids),
                                    vocab=cfg.vocab_size, device=dev)
+    ts_begin = cfg.timestamp_begin_id if dcfg.return_timestamps else None
+    if sampling:
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        table = step_params["embed"]["table"].float()   # compute-dtype values
+        masks = suppress_masks(cfg.vocab_size, suppress_ids,
+                               begin_suppress_ids, dev)
     # seen-token mask for the repetition penalty: seeded with position 0
     # and extended by every token written (prompt-forced and post-EOS pads
     # included), so it always marks exactly the ids in tokens[:, :pos]
@@ -147,15 +219,31 @@ def generate(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
                                               cache, cross)
         hiddens[:, i] = hidden
         pos = i + 1   # position being generated
+        if sampling:
+            noise = gumbel_noise((batch, cfg.vocab_size), generator)
         if pos < p_len:
             nxt = prompt_t[pos].expand(batch)
+        elif sampling:
+            logits = _process_logits(
+                torch.matmul(hidden.float(), table.t()), tokens, pos, cfg,
+                dcfg, p_len, masks,
+                seen=seen[:, :cfg.vocab_size] if track_seen else None,
+                finished=finished)
+            nxt = torch.argmax(logits / dcfg.temperature + noise, dim=-1)
         else:
             ban = (lp.ngram_ban_mask(tokens, pos, n, v_pad, finished)
                    if use_ban else None)
+            ts_bounds = None
+            if dcfg.return_timestamps:
+                ts_bounds = lp.timestamp_row_bounds(
+                    tokens, pos, begin_index=p_len,
+                    timestamp_begin=cfg.timestamp_begin_id,
+                    eos_token_id=cfg.eos_token_id)
             nxt = dl.fused_greedy_step(
                 hidden, table_t, add_begin if pos == p_len else add_base,
-                seen=seen, ban=ban,
-                penalty=dcfg.repetition_penalty).long()
+                seen=seen, ban=ban, penalty=dcfg.repetition_penalty,
+                ts_bounds=ts_bounds, timestamp_begin=ts_begin).long()
+        if pos >= p_len:
             nxt = torch.where(finished, cfg.pad_token_id, nxt)
             finished |= nxt == cfg.eos_token_id
         tokens[:, pos] = nxt
@@ -180,13 +268,19 @@ def generate_with_fallback(params: dict, cfg: WhisperConfig,
                            dcfg: DecodeConfig, enc: torch.Tensor, *,
                            prompt: Optional[Tuple[int, ...]] = None,
                            suppress_ids: Tuple[int, ...] = (),
-                           tokenizer=None) -> dict:
+                           tokenizer=None,
+                           generator: Optional[torch.Generator] = None,
+                           fallback_temperature: float = 0.7) -> dict:
     """`generate`, then whisper's anti-repetition fallback: rows whose
     transcript's zlib compression ratio exceeds
-    `dcfg.compression_ratio_threshold` would be re-decoded with
-    temperature sampling. With no threshold (the pipeline's setting) the
-    greedy result is returned unchanged; the re-decode itself is not
-    ported yet and raises when a row is flagged."""
+    `dcfg.compression_ratio_threshold` (of the tokenizer's text, or else
+    of the int32 id bytes) are decoded again with temperature sampling
+    (0.7, from `generator`, by default seeded 0 as the reference's
+    PRNGKey(0)) and merged back. A threshold of None or 0 turns it off.
+
+    The reference gathers the flagged rows into a power-of-two bucket, a
+    fixed compile shape for the TPU; the port decodes exactly the flagged
+    rows again. Rows are independent, so the tokens are the same."""
     import numpy as np
 
     from audio_transformers_tpu_torch.infer.metrics import \
@@ -197,14 +291,25 @@ def generate_with_fallback(params: dict, cfg: WhisperConfig,
     threshold = dcfg.compression_ratio_threshold
     if not threshold:
         return out
-    p_len = len(prompt if prompt is not None else build_prompt(cfg, dcfg))
+    if prompt is None:
+        prompt = build_prompt(cfg, dcfg)
+    p_len = len(prompt)
     tokens = out["tokens"].cpu().numpy()
     lengths = out["lengths"].cpu().numpy()
+    flagged = []
     for b in range(tokens.shape[0]):
         ids = tokens[b, p_len: int(lengths[b])]
         sample = (tokenizer.decode([int(t) for t in ids])
                   if tokenizer is not None else ids.astype(np.int32).tobytes())
         if compression_ratio(sample) > threshold:
-            raise NotImplementedError(
-                "the temperature re-decode of the fallback is not ported yet")
-    return out
+            flagged.append(b)
+    if not flagged:
+        return out
+    idx = torch.tensor(flagged, device=enc.device)
+    hot = dcfg.replace(temperature=fallback_temperature)
+    resampled = generate(params, cfg, hot, enc[idx], prompt=prompt,
+                         suppress_ids=suppress_ids, generator=generator)
+    merged = dict(out)
+    for k in ("tokens", "hiddens", "lengths"):
+        merged[k] = out[k].index_copy(0, idx, resampled[k])
+    return merged

@@ -2,10 +2,10 @@
 
 The reference's `audio_transformers_tpu/models/whisper/emotion.py`:
 `forward_train`, the teacher-forced training pass (token logits and
-emotion logits mean-pooled from the decoder states), and the sequence-level
-emotion logits pooled from the hidden states the greedy decode recorded.
-Segment-level pooling from timestamped decodes waits for timestamped
-decoding.
+emotion logits mean-pooled from the decoder states), the sequence-level
+emotion logits pooled from the hidden states a decode recorded, and the
+per-segment emotion logits of a timestamped decode, pooled over each
+timestamp segment's text tokens.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ from audio_transformers_tpu_torch.core.config import \
 from audio_transformers_tpu_torch.core import params as cp
 from audio_transformers_tpu_torch.models.whisper import model as wm
 from audio_transformers_tpu_torch.ops import nn
-from audio_transformers_tpu_torch.ops.segment_pool import masked_sequence_mean
+from audio_transformers_tpu_torch.ops.segment_pool import (
+    masked_sequence_mean, segment_ids_from_tokens, segment_means)
 
 
 def init(cfg: EmotionWhisperConfig, generator: torch.Generator) -> dict:
@@ -68,3 +69,37 @@ def sequence_emotion_from_hiddens(params: dict, hiddens: torch.Tensor,
                 < lengths[:, None])
         pooled = masked_sequence_mean(hiddens, mask)
     return nn.linear(params["emotion_head"], pooled).float()
+
+
+def segment_emotion_from_decode(params: dict, cfg: EmotionWhisperConfig,
+                                decode_out: dict, *, prompt_len: int,
+                                max_segments: Optional[int] = None) -> dict:
+    """Per-segment emotion logits of a timestamped decode. Returns
+    {"segment_logits" (B, S, C) float32, "segment_counts" (B, S),
+    "num_segments" (B,)}; segments with count 0 are padding.
+
+    max_segments=None sizes the segment buffer from the decode buffer: a
+    row of G generated tokens closes at most G // 2 timestamp pairs, plus
+    one slot for the fallback, so no segment is dropped. A row with no
+    segment falls back to whole-sequence pooling (positions < lengths) as
+    its segment 0, as in the reference."""
+    w = cfg.whisper
+    tokens, lengths = decode_out["tokens"], decode_out["lengths"]
+    hiddens = decode_out["hiddens"]
+    if max_segments is None:
+        max_segments = max((tokens.shape[1] - prompt_len) // 2, 0) + 1
+    seg_ids, valid = segment_ids_from_tokens(
+        tokens, lengths, prompt_len=prompt_len,
+        timestamp_begin=w.timestamp_begin_id, eos_token_id=w.eos_token_id)
+    means, counts = segment_means(hiddens, seg_ids, valid, max_segments)
+    logits = nn.linear(params["emotion_head"], means).float()
+    num = (counts > 0).int().sum(dim=1)
+    mask = (torch.arange(hiddens.shape[1], device=hiddens.device)[None, :]
+            < lengths[:, None])
+    seq_logits = nn.linear(params["emotion_head"],
+                           masked_sequence_mean(hiddens, mask)).float()
+    empty = num == 0
+    logits[:, 0] = torch.where(empty[:, None], seq_logits, logits[:, 0])
+    counts[:, 0] = torch.where(empty, 1.0, counts[:, 0])
+    return {"segment_logits": logits, "segment_counts": counts,
+            "num_segments": torch.where(empty, 1, num)}

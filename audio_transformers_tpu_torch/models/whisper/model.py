@@ -19,8 +19,8 @@ decode step, self and cross K/V keep the reference's time-minor
 (B, H, hd, T) layout.
 Cross-attention runs through the hand-written kernel
 `ops.decode_attention.decode_cross_attention` (its plain version on the
-CPU); with beams, the beams of a row share its cross K/V in one batched
-product instead. Self-attention over the short cache (bf16/f32, or int8
+CPU), over bf16/f32, int8 or nibble-packed int4 cross K/V; with beams, the
+beams of a row share its cross K/V in one batched product instead. Self-attention over the short cache (bf16/f32, or int8
 with per-step scales) stays plain PyTorch, as it stays XLA in the
 reference. Unlike the reference's functional cache, the port's cache is
 written in place: `apply_decoder_step` fills column `cache["index"]` of
@@ -37,8 +37,8 @@ import torch
 from audio_transformers_tpu_torch.core.config import WhisperConfig
 from audio_transformers_tpu_torch.core.params import map_tensors
 from audio_transformers_tpu_torch.ops import nn
-from audio_transformers_tpu_torch.ops.decode_attention import \
-    decode_cross_attention
+from audio_transformers_tpu_torch.ops.decode_attention import (
+    decode_cross_attention, pack_int4, unpack_int4)
 
 Tensor = torch.Tensor
 
@@ -189,15 +189,22 @@ def precompute_cross_attention(params: dict, cfg: WhisperConfig, enc: Tensor,
     dtype, emitted directly in the time-minor layout (weight @ enc^T).
     quant="int8" stores int8 values with a per-key K scale (B, H, T) and
     a per-channel V scale (B, H, hd), both float32, as the reference does;
-    the cross-attention kernel folds them at the edges."""
-    if quant == "int4":
-        raise NotImplementedError("int4 cross K/V is not ported yet")
-    if quant not in ("none", "int8"):
+    the cross-attention kernel folds them at the edges. quant="int4" has
+    the same scales at a quarter of the range (qmax 7) and stores the
+    values nibble-packed along time (`pack_int4`, (B, H, hd, T/2) int8),
+    the K scales split even/odd as (B, H, 2, T/2); T must be even."""
+    if quant not in ("none", "int8", "int4"):
         raise ValueError(f"unknown kv_quant {quant!r}")
     out = {"k": [], "v": []}
-    if quant == "int8":
+    if quant != "none":
         out["k_scale"], out["v_scale"] = [], []
+    qmax = 127.0 if quant == "int8" else 7.0
     b, t, _ = enc.shape
+    if quant == "int4" and t % 2:
+        # a zero-padded phantom key would score 0, not -inf, and leak into
+        # the softmax; whisper's encoder length is always even
+        raise ValueError(f"kv_quant='int4' needs an even encoder length, "
+                         f"got T={t}")
     h, hd = cfg.num_heads, cfg.head_dim
     enc_t = enc.transpose(1, 2)                           # (B, D, T)
     for bp in params["decoder"]["blocks"]:
@@ -214,13 +221,22 @@ def precompute_cross_attention(params: dict, cfg: WhisperConfig, enc: Tensor,
             out["v"].append(v)
             continue
         k_scale = k.abs().amax(dim=2, keepdim=True).float().clamp(
-            min=1e-6) / 127.0                             # (B, H, 1, T)
+            min=1e-6) / qmax                              # (B, H, 1, T)
         v_scale = v.abs().amax(dim=3, keepdim=True).float().clamp(
-            min=1e-6) / 127.0                             # (B, H, hd, 1)
-        out["k"].append(torch.round(k.float() / k_scale).to(torch.int8))
-        out["v"].append(torch.round(v.float() / v_scale).to(torch.int8))
-        out["k_scale"].append(k_scale[:, :, 0, :].contiguous())
+            min=1e-6) / qmax                              # (B, H, hd, 1)
+        k_q = torch.round(k.float() / k_scale)
+        v_q = torch.round(v.float() / v_scale)
         out["v_scale"].append(v_scale[:, :, :, 0].contiguous())
+        if quant == "int4":
+            out["k"].append(pack_int4(k_q))
+            out["v"].append(pack_int4(v_q))
+            ks = k_scale[:, :, 0, :]
+            out["k_scale"].append(torch.stack(
+                [ks[..., 0::2], ks[..., 1::2]], dim=2).contiguous())
+            continue
+        out["k"].append(k_q.to(torch.int8))
+        out["v"].append(v_q.to(torch.int8))
+        out["k_scale"].append(k_scale[:, :, 0, :].contiguous())
     return out
 
 
@@ -239,8 +255,24 @@ def beam_cross(cross: dict) -> dict:
     beams' batched products run in float32; int8 values are exact in
     float32), the scales as they are, and "p_dtype", the dtype the
     probabilities are rounded to before P.V (the K/V's own dtype, as the
-    reference's `cp.astype(vq.dtype)`; int8 K/V meet float32 p)."""
+    reference's `cp.astype(vq.dtype)`; int8 K/V meet float32 p).
+
+    int4 K/V follow the reference's int4 beam arithmetic: unpacked and
+    dequantized to float32 with their scales folded in (the reference
+    does it every step; the values are the same), then read as unquantized
+    K/V with float32 p: q is not quantized, unlike int8's beam branch."""
     out = dict(cross)
+    if "k_scale" in cross and cross["k_scale"][0].dim() == 4:
+        del out["k_scale"], out["v_scale"]
+        out["k"], out["v"] = [], []
+        for k, v, ks, vs in zip(cross["k"], cross["v"], cross["k_scale"],
+                                cross["v_scale"]):
+            # (B, H, 2, T/2) even/odd scales -> interleaved (B, H, T)
+            k_s = ks.transpose(2, 3).reshape(*ks.shape[:2], -1)
+            out["k"].append(unpack_int4(k).float() * k_s[:, :, None, :])
+            out["v"].append(unpack_int4(v).float() * vs[:, :, :, None])
+        out["p_dtype"] = torch.float32
+        return out
     out["k"] = [t.float() for t in cross["k"]]
     out["v"] = [t.float() for t in cross["v"]]
     out["p_dtype"] = torch.float32 if "k_scale" in cross \
@@ -256,7 +288,8 @@ def _beam_cross_attention(cq: Tensor, k: Tensor, v: Tensor,
     B rows of float32 cross K/V (B, H, hd, T) from `beam_cross`: every
     beam of a batch row shares its row's K/V in one batched product,
     (B, H, beams, hd) @ (B, H, hd, T), with float32 accumulation, as the
-    reference's `bnhd,bhdk->bnhk` einsum.
+    reference's `bnhd,bhdk->bnhk` einsum (int4 K/V arrive dequantized
+    from `beam_cross` and take this unquantized branch).
 
     int8 K/V follow the reference's beam arithmetic (the `beams > 1`
     branch of `audio_transformers_tpu/models/whisper/model.py`), which
@@ -272,8 +305,6 @@ def _beam_cross_attention(cq: Tensor, k: Tensor, v: Tensor,
         p = torch.softmax(logits, dim=-1).to(p_dtype).float()
         out = torch.matmul(p, v.transpose(-1, -2))
     else:
-        if k_scale.dim() == 4:
-            raise NotImplementedError("int4 cross K/V is not ported yet")
         qq, qs = _q8(q)
         logits = (torch.matmul(qq, k) * qs
                   * k_scale[:, :, None, :] * scale)

@@ -21,7 +21,11 @@ memory.
 
 int8 mode folds the per-key `k_scale` into the logit row and the
 per-channel `v_scale` into the output row; q and the probabilities are
-never quantized. int4 waits (it raises).
+never quantized. int4 mode (chosen by a 4-D `k_scale`, as in the
+reference) reads K and V nibble-packed along time, (B, H, hd, T/2) int8,
+with the K scales split even/odd as (B, H, 2, T/2): half of int8's bytes.
+The kernel walks its packed columns (bytes) as it walks int8's and takes
+each sub-tile's even keys, then its odd ones, with the same folding.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ import torch
 
 from audio_transformers_tpu_torch.ops import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# kv-dtype codes of csrc/common.cuh; "int4" is int8 storage, two keys a byte
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, "int4": 3}
 # q, k, v, k_scale, v_scale, out, part, count; bh, hd, t_len, t_valid,
 # chunk, splits; scale; q dtype, kv dtype; stream
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
@@ -56,10 +61,12 @@ _SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 @functools.lru_cache(maxsize=None)
 def split_plan(bh: int, t: int, itemsize: int, hd: int) -> Tuple[int, int]:
-    """(chunk, splits) of K1 for bh (b, h) rows of hd channels over t keys
-    of `itemsize` bytes: keys [i * chunk, (i + 1) * chunk) of every channel
-    go to split i < splits, the last one ragged. A chunk is a whole number
-    of the kernel's sub-tiles (256 bytes of keys per channel row); each row
+    """(chunk, splits) of K1 for bh (b, h) rows of hd channels over t
+    columns of `itemsize` bytes (keys; in int4 mode packed bytes, two keys
+    each, so that a chunk starts on an even key): columns [i * chunk,
+    (i + 1) * chunk) of every channel go to split i < splits, the last one
+    ragged. A chunk is a whole number of the kernel's sub-tiles (256 bytes
+    of a channel row: 128 bf16 keys, 256 int8, 512 int4); each row
     gets about two blocks per SM of the H100 between its splits, or one
     sub-tile per split where T is too short for that, and at most the
     splits whose partials the merge stages at once (263 at hd = 64)."""
@@ -108,13 +115,25 @@ def unpack_int4(x: torch.Tensor) -> torch.Tensor:
 
 
 def decode_cross_attention_reference(q, k, v, *, k_scale=None, v_scale=None,
-                                     scale=None) -> torch.Tensor:
+                                     scale=None,
+                                     t_valid: Optional[int] = None
+                                     ) -> torch.Tensor:
     """Plain PyTorch version: q (B, H, hd), k and v (B, H, hd, T); int8
-    k/v with k_scale (B, H, T) and v_scale (B, H, hd). float32 math,
-    output in q's dtype."""
+    k/v with k_scale (B, H, T) and v_scale (B, H, hd); int4 k/v packed as
+    (B, H, hd, T/2) with k_scale (B, H, 2, T/2), unpacked and their scales
+    interleaved first, as the reference's oracle does. Keys at t >=
+    t_valid (default all) are left out. float32 math, output in q's
+    dtype."""
     _build.count_plain("decode_cross_attention", q)
     hd = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    if k_scale is not None and k_scale.dim() == 4:
+        k, v = unpack_int4(k), unpack_int4(v)
+        # (B, H, 2, T/2) even/odd scales -> interleaved (B, H, T)
+        k_scale = k_scale.transpose(2, 3).reshape(*k_scale.shape[:2], -1)
+    if t_valid is not None:
+        k, v = k[..., :t_valid], v[..., :t_valid]
+        k_scale = None if k_scale is None else k_scale[..., :t_valid]
     kf = k.float()
     vf = v.float()
     if k_scale is not None:
@@ -125,7 +144,7 @@ def decode_cross_attention_reference(q, k, v, *, k_scale=None, v_scale=None,
     return torch.einsum("bht,bhdt->bhd", p, vf).to(q.dtype)
 
 
-def _check(q, k, v, k_scale, v_scale, t_valid):
+def _check(q, k, v, k_scale, v_scale, t_valid, int4):
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape \
             or k.shape[:3] != q.shape:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -136,15 +155,19 @@ def _check(q, k, v, k_scale, v_scale, t_valid):
         raise TypeError(f"k/v dtypes {k.dtype}/{v.dtype}")
     quant = k_scale is not None
     if quant != (k.dtype == torch.int8) or quant != (v_scale is not None):
-        raise ValueError("int8 k/v need k_scale and v_scale, and only they")
+        raise ValueError("int8 and int4 k/v need k_scale and v_scale, and "
+                         "only they")
     b, h, hd, t = k.shape
-    if quant and (k_scale.shape != (b, h, t) or v_scale.shape != (b, h, hd)
+    # int4: t packed bytes hold 2t keys; the K scales split even/odd
+    ks_shape = (b, h, 2, t) if int4 else (b, h, t)
+    if quant and (k_scale.shape != ks_shape or v_scale.shape != (b, h, hd)
                   or k_scale.dtype != torch.float32
                   or v_scale.dtype != torch.float32):
-        raise ValueError("k_scale must be (B,H,T) and v_scale (B,H,hd), "
-                         "both float32")
-    if not 0 < t_valid <= t:
-        raise ValueError(f"t_valid {t_valid} outside (0, {t}]")
+        raise ValueError(f"k_scale must be {ks_shape} and v_scale "
+                         f"(B,H,hd), both float32")
+    t_len = 2 * t if int4 else t
+    if not 0 < t_valid <= t_len:
+        raise ValueError(f"t_valid {t_valid} outside (0, {t_len}]")
     if not 0 < hd <= _MAX_HEAD_DIM or b * h > _MAX_GRID_Y \
             or hd * t * k.element_size() >= 2 ** 31:
         raise ValueError(f"head dim {hd}, B*H {b * h} or T {t} out of range")
@@ -167,23 +190,27 @@ def decode_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Single-query attention over precomputed time-minor keys/values.
 
     q (B, H, hd); k and v (B, H, hd, T). For int8 k/v pass k_scale
-    (B, H, T) and v_scale (B, H, hd), both float32. Keys at t >= t_valid
-    (default T) are ignored. Returns (B, H, hd) in q's dtype. CUDA tensors
-    run the kernel; CPU tensors run `decode_cross_attention_reference`."""
-    if k_scale is not None and k_scale.dim() == 4:
-        raise NotImplementedError("int4 cross K/V is not ported yet")
+    (B, H, T) and v_scale (B, H, hd), both float32; for int4 k/v packed
+    (B, H, hd, T/2) int8 (`pack_int4`) pass k_scale (B, H, 2, T/2), the
+    even keys' scales then the odd ones', and v_scale (B, H, hd): the
+    rank of k_scale selects int4, as in the reference. Keys at t >=
+    t_valid (default T) are ignored. Returns (B, H, hd) in q's dtype.
+    CUDA tensors run the kernel; CPU tensors run
+    `decode_cross_attention_reference`."""
+    int4 = k_scale is not None and k_scale.dim() == 4
     t_len = k.shape[-1]
-    t_valid = t_len if t_valid is None else int(t_valid)
+    t_keys = 2 * t_len if int4 else t_len
+    t_valid = t_keys if t_valid is None else int(t_valid)
     if not q.is_cuda:
-        if t_valid != t_len:
-            k, v = k[..., :t_valid], v[..., :t_valid]
-            k_scale = None if k_scale is None else k_scale[..., :t_valid]
         return decode_cross_attention_reference(
-            q, k, v, k_scale=k_scale, v_scale=v_scale, scale=scale)
-    _check(q, k, v, k_scale, v_scale, t_valid)
+            q, k, v, k_scale=k_scale, v_scale=v_scale, scale=scale,
+            t_valid=None if t_valid == t_keys else t_valid)
+    _check(q, k, v, k_scale, v_scale, t_valid, int4)
     b, h, hd = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    chunk, splits = split_plan(b * h, t_valid, k.element_size(), hd)
+    # int4 splits its packed columns: the bytes that hold a valid key
+    cols = (t_valid + 1) // 2 if int4 else t_valid
+    chunk, splits = split_plan(b * h, cols, k.element_size(), hd)
     out = torch.empty_like(q)
     stream = _build.stream_ptr(q)
     count, part = _scratch(q.device, stream.value, b * h,
@@ -193,7 +220,8 @@ def decode_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
             _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(out),
             _build.ptr(part), _build.ptr(count), b * h, hd, t_len, t_valid,
-            chunk, splits, scale, _DTYPES[q.dtype], _DTYPES[k.dtype], stream)
+            chunk, splits, scale, _DTYPES[q.dtype],
+            _DTYPES["int4" if int4 else k.dtype], stream)
     _build.check(rc, "decode_cross_attention")
     _build.STATS["decode_cross_attention"].launches += 1
     return out

@@ -221,7 +221,10 @@ def main(argv=None):
                    help=".pt of a port parameter tree; default: seeded init")
     p.add_argument("--config", default="tiny",
                    help="whisper size name (tiny, base, ..., test)")
-    p.add_argument("--kv_quant", default="none", choices=["none", "int8"])
+    p.add_argument("--kv_quant", default="none",
+                   choices=["none", "int8", "int4"],
+                   help="quantize the decode K/V caches (the cross K/V in "
+                        "int8 or nibble-packed int4, the self K/V in int8)")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve from (cuda, cpu)")
     p.add_argument("--host", default="127.0.0.1")

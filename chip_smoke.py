@@ -29,7 +29,11 @@ each raising on failure:
      query; K and V in SDPA's (B, H, T, hd) layout, and as transposed
      views of the kernel's time-minor tensors), and the device time of K1
      and of SDPA on (B, H, T, hd) K/V (torch.profiler: at about 0.01 ms a
-     call's event time is mostly host time);
+     call's event time is mostly host time); K1's int4 mode (nibble-packed
+     K/V, even/odd K scales) at B = 1, 4, 16 with bf16 and float32 q, all
+     1500 keys and an odd t_valid of 1499, two launches bit-equal, its
+     per-call and device times beside int8's device time in the same
+     call;
   4. correctness on a small input: the port's pipeline at the test config
      in float32 on the card (kernels) equals the same pipeline on the CPU
      (plain versions);
@@ -70,17 +74,36 @@ each raising on failure:
      CPU;
   14. the beam serving path: EmotionWhisperPipeline(num_beams=4).analyze of
      a 12 s clip at whisper-tiny width (seeded weights, bfloat16), with
-     kv_quant "none" and "int8", launch counters reset around each;
+     kv_quant "none", "int8" and "int4", launch counters reset around each;
   15. the HTTP server with that beam pipeline, three concurrent requests;
   16. beam decode ms per step at B=16 and B=128 (N=4, seeded random
      encoder states), the K5 reorder against its plain version (one
      index_select per buffer, patched in for the plain turns), in five
      turns each: the time of a 64-token decode less that of a 16-token
-     one, over 48.
+     one, over 48;
+  17. correctness of evaluation on a small input: evaluate_sequence_level
+     and evaluate_segment_level (infer/evaluate.py) at the test config
+     (timestamps moved to ids >= 600) in float32, kv_quant "none" and
+     "int4", the fallback re-decoding every row with text, on the card and
+     on the CPU with the same Gumbel noise (drawn on the CPU and moved to
+     the card through decode.gumbel_noise): the decoded tokens equal and
+     the four files (metrics.txt and predictions.txt, predictions.txt and
+     segment_evaluation.txt) identical;
+  18. segment evaluation at whisper-tiny width: evaluate_segment_level on 8
+     synthetic 30 s clips in batches of 4 (seeded weights, bfloat16, the
+     reference's decode: timestamps, 256 new tokens, repetition penalty
+     1.1, no-repeat 3-gram), kv_quant "none" and "int4", with the
+     fallback at the reference's 2.4 (byte tokenizer) and at 1e-6 over the
+     id bytes, which re-decodes every row at temperature 0.7; counters
+     reset around each run: K1 (every call in int4 mode with int4), K2
+     (in its timestamp mode) and K3 launched, no plain version on CUDA;
+     the wall time, segments, re-decoded rows and launches logged;
+  19. the same evaluation with 4 beams and int4 cross K/V: K5 launched.
 
 Tolerances (kernel vs plain version, on the card):
   K1 decode_cross_attention: 1e-5 abs in float32 (sum order only);
-     2e-2 abs in bfloat16 (one bf16 ulp of the output).
+     2e-2 abs in bfloat16 (one bf16 ulp of the output); the same in int4
+     mode by q's dtype.
   K2 fused_greedy_step: tokens equal on every row whose plain top-2 gap
      (and, with timestamps, the margin of the probability rule) exceeds
      1e-3; rows below that gap are reported, not compared.
@@ -112,6 +135,10 @@ PyTorch call computing the same function where there is one (SDPA for
 K1, on K/V in its own layout, and for K4; its backward computes K4b and
 K4c together), else null; K1's entry also has `device_ms` and
 `library_device_ms` (profiler kernel time of K1 and of that SDPA call),
+`int4_*_b{1,4,16}` (the int4 mode's times, bound and int8's device time;
+no library call takes nibble-packed K/V) and `launches_eval_int4` (every
+serving kernel's entry has it: its launches in phase 18's int4 run at
+threshold 2.4),
 K2's `device_ms`, K3's `device_ms` and `kernels_per_call` (K3's own),
 `call_device_ms` and `call_kernels` (the whole `log_mel` call: K3 and the
 whisper floor after it) and `stft_ms` (torch.stft's device time, no
@@ -363,6 +390,70 @@ def check_k1(torch, da, gen, results):
                        f"({backend['contiguous']})",
             "library_time_minor_ms": lib["time-minor"],
             "device_ms": dev_ms, "library_device_ms": lib_dev,
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
+    return worst
+
+
+def check_k1_int4(torch, da, gen, results):
+    """K1's int4 mode (nibble-packed K/V, even/odd K scales) against its
+    plain version at the path's shapes, bf16 and float32 q, all keys and
+    an odd t_valid (the last byte's high nibble masked), two launches
+    bit-equal; its per-call and device times, and int8's device time in
+    the same call."""
+    dev = "cuda"
+    h, hd, t = 6, 64, 1500
+    worst = 0.0
+    for b in (1, 4, 16):
+        q = torch.randn((b, h, hd), generator=gen, device=dev)
+        k = torch.randn((b, h, hd, t), generator=gen, device=dev)
+        v = torch.randn((b, h, hd, t), generator=gen, device=dev)
+        ks, vs = k.abs().amax(dim=2) / 7.0, v.abs().amax(dim=3) / 7.0
+        kp = da.pack_int4(torch.round(k / ks[:, :, None, :]))
+        vp = da.pack_int4(torch.round(v / vs[:, :, :, None]))
+        kw = {"k_scale": torch.stack([ks[..., 0::2], ks[..., 1::2]],
+                                     dim=2).contiguous(), "v_scale": vs}
+        for name, qq, tol in (("int4+f32q", q, K1_TOL_F32),
+                              ("int4+bf16q", q.bfloat16(), K1_TOL_BF16)):
+            for tv in (t, t - 1):
+                got = da.decode_cross_attention(qq, kp, vp, t_valid=tv, **kw)
+                got2 = da.decode_cross_attention(qq, kp, vp, t_valid=tv,
+                                                 **kw)
+                want = da.decode_cross_attention_reference(
+                    qq, kp, vp, t_valid=tv, **kw)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                log(f"K1 B={b} {name:10s} t_valid={tv} max_abs_err="
+                    f"{err:.3e} (tol {tol}); two launches bit-equal")
+                require(err <= tol, f"K1 {name} B={b} t_valid={tv}: "
+                        f"{err} > {tol}")
+                require(torch.equal(got, got2), f"K1 {name} B={b} "
+                        f"t_valid={tv}: two launches differ")
+                worst = max(worst, err)
+        qb = q.bfloat16()
+
+        def kernel():
+            return da.decode_cross_attention(qb, kp, vp, **kw)
+        ms = time_ms(kernel)
+        plain = time_ms(lambda: da.decode_cross_attention_reference(
+            qb, kp, vp, **kw))
+        dev_ms = device_ms(kernel)
+        # int8 K/V of the same values, in the same call
+        s8, v8s = k.abs().amax(dim=2) / 127.0, v.abs().amax(dim=3) / 127.0
+        k8 = torch.round(k / s8[:, :, None, :]).to(torch.int8)
+        v8 = torch.round(v / v8s[:, :, :, None]).to(torch.int8)
+        int8_ms = device_ms(lambda: da.decode_cross_attention(
+            qb, k8, v8, k_scale=s8, v_scale=v8s))
+        # the packed K and V, both scales and q read once, out written once
+        bnd = bound(nbytes(qb, kp, vp, kw["k_scale"], kw["v_scale"], qb),
+                    4 * b * h * t * hd, BF16_FLOPS)
+        log(f"K1 B={b} int4 (bf16 q) time: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms; device time {dev_ms:.4f} ms, int8 in the same "
+            f"call {int8_ms:.4f} ms; bound {bnd[0]:.5f} ms ({bnd[1]}, "
+            f"{100 * bnd[0] / dev_ms:.1f}% of it by device time); split "
+            f"plan {da.split_plan(b * h, t // 2, 1, hd)}")
+        results.setdefault(b, {})["decode_cross_attention_int4"] = {
+            "ms": ms, "plain_ms": plain, "library_ms": None,
+            "device_ms": dev_ms, "int8_device_ms": int8_ms,
             "bound_ms": bnd[0], "bound_by": bnd[1]}
     return worst
 
@@ -1080,10 +1171,10 @@ def check_small_beam(torch, EmotionWhisperConfig, WhisperConfig, init,
 
 
 def check_beam_serving(torch, _build, Pipeline, params, cfg, clip):
-    """analyze through beam search at whisper-tiny width, kv_quant none and
-    int8; returns ({mode: launch stats}, the "none" pipeline)."""
+    """analyze through beam search at whisper-tiny width, kv_quant none,
+    int8 and int4; returns ({mode: launch stats}, the "none" pipeline)."""
     runs, pipes = {}, {}
-    for mode in ("none", "int8"):
+    for mode in ("none", "int8", "int4"):
         pipe = Pipeline(params, cfg, device="cuda",
                         compute_dtype=torch.bfloat16, kv_quant=mode,
                         num_beams=N_BEAMS)
@@ -1115,7 +1206,7 @@ def check_beam_serving(torch, _build, Pipeline, params, cfg, clip):
         log(f"beam analyze ({mode}, same clip, second call): "
             f"{time.perf_counter() - t0:.3f} s")
         runs[mode], pipes[mode] = stats, pipe
-    del pipes["int8"]
+    del pipes["int8"], pipes["int4"]
     return runs, pipes["none"]
 
 
@@ -1167,6 +1258,236 @@ def time_beam_steps(torch, beam, pm, cfg, params):
         del enc
         torch.cuda.empty_cache()
     return result
+
+
+# ---------------------------------------------------------------------------
+# phases 17-19: segment-level evaluation
+# ---------------------------------------------------------------------------
+
+
+class Spy:
+    """Counts, in place of the module attribute `attr` of `mod`, the calls
+    that `pick(args, kwargs)` selects, and keeps what `keep` takes of each
+    result; `with` restores the attribute."""
+
+    def __init__(self, mod, attr, pick=lambda a, k: True, keep=None):
+        self.mod, self.attr = mod, attr
+        self.fn = getattr(mod, attr)
+        self.pick, self.keep = pick, keep
+        self.calls, self.kept, self.seconds = 0, [], 0.0
+
+    def __call__(self, *args, **kwargs):
+        import torch
+        picked = self.pick(args, kwargs)
+        if picked and self.keep is not None:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        if picked:
+            self.calls += 1
+            if self.keep is not None:
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                self.kept.append(self.keep(args, kwargs, out))
+        return out
+
+    def __enter__(self):
+        setattr(self.mod, self.attr, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.attr, self.fn)
+        return False
+
+
+class CpuGumbel:
+    """Stands in for decode.gumbel_noise (the replay hook): the noise is
+    drawn on the CPU, from a generator seeded 0 for each new decode's
+    generator, and moved to the decode's device, so that a decode on the
+    card and one on the CPU sample with the same noise."""
+
+    def __init__(self, decode):
+        self.decode, self.draw = decode, decode.gumbel_noise
+        self.of = self.cpu = None
+
+    def __call__(self, shape, generator):
+        import torch
+        if generator is not self.of:
+            self.of = generator
+            self.cpu = torch.Generator().manual_seed(0)
+        return self.draw(shape, self.cpu).to(generator.device)
+
+    def __enter__(self):
+        self.decode.gumbel_noise = self
+        return self
+
+    def __exit__(self, *exc):
+        self.decode.gumbel_noise = self.draw
+        return False
+
+
+def _segment_dcfg(**kw):
+    """The reference's segment-evaluation decode (evaluate_segment_level's
+    default) with `kw` replaced."""
+    from audio_transformers_tpu_torch.core import DecodeConfig
+    base = dict(max_new_tokens=256, return_timestamps=True,
+                no_repeat_ngram_size=3, repetition_penalty=1.1,
+                compression_ratio_threshold=2.4)
+    return DecodeConfig(**{**base, **kw})
+
+
+def _read_files(path):
+    return {name: open(os.path.join(path, name), "rb").read()
+            for name in sorted(os.listdir(path))}
+
+
+def check_small_evaluate(torch):
+    """Sequence- and segment-level evaluation at the test config (its
+    timestamps moved to ids >= 600, so that rows mix text and
+    timestamps) in float32, card against CPU, kv_quant none and int4, the
+    fallback re-decoding every row with text: the same CPU-drawn Gumbel
+    noise on both sides; tokens equal and the files identical."""
+    import tempfile
+
+    from audio_transformers_tpu_torch.core import (DecodeConfig,
+                                                   EmotionWhisperConfig,
+                                                   MelConfig, WhisperConfig)
+    from audio_transformers_tpu_torch.core.params import init
+    from audio_transformers_tpu_torch.data.synthetic import SyntheticSeq2Seq
+    from audio_transformers_tpu_torch.infer import evaluate as ev
+    from audio_transformers_tpu_torch.models.whisper import decode
+    cfg = EmotionWhisperConfig(
+        whisper=WhisperConfig.test().replace(timestamp_begin_id=600),
+        num_emotion_classes=4)
+    params = init(cfg, torch.Generator().manual_seed(1))
+    mel_cfg = MelConfig.whisper(n_mels=cfg.whisper.n_mels)
+    styles = {0: "angry", 1: "happy", 2: "sad", 3: "whisper"}
+    # clips of the test config's window (64 encoder positions: 1.28 s)
+    data = SyntheticSeq2Seq(num_samples=6, num_classes=4,
+                            vocab_size=cfg.whisper.vocab_size, duration=1.28,
+                            seed=3)
+    for mode in ("none", "int4"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            with tempfile.TemporaryDirectory() as tmp, CpuGumbel(decode), \
+                    Spy(decode, "generate_with_fallback",
+                        keep=lambda a, k, out: out["tokens"].cpu()) as dec:
+                for level, dcfg in (
+                        ("sequence", DecodeConfig(
+                            max_new_tokens=40, no_repeat_ngram_size=3,
+                            repetition_penalty=1.15, kv_quant=mode)),
+                        ("segment", _segment_dcfg(
+                            kv_quant=mode,
+                            compression_ratio_threshold=1e-6))):
+                    fn = getattr(ev, f"evaluate_{level}_level")
+                    fn(params, cfg, mel_cfg, data.batcher(4), styles,
+                       tokenizer=ByteTokenizer(), device=dev,
+                       output_dir=os.path.join(tmp, level), dcfg=dcfg,
+                       compute_dtype=torch.float32)
+                files = {f"{level}/{name}": body for level in
+                         ("sequence", "segment") for name, body in
+                         _read_files(os.path.join(tmp, level)).items()}
+                runs[dev] = (dec.kept, files)
+        (gpu_toks, gpu_files), (cpu_toks, cpu_files) = runs["cuda"], \
+            runs["cpu"]
+        require(len(gpu_toks) == len(cpu_toks) == 4, "four decodes a side")
+        for g, c in zip(gpu_toks, cpu_toks):
+            require(torch.equal(g, c),
+                    f"small evaluation ({mode}): tokens card vs CPU")
+        require(sorted(gpu_files) == ["segment/predictions.txt",
+                                      "segment/segment_evaluation.txt",
+                                      "sequence/metrics.txt",
+                                      "sequence/predictions.txt"],
+                f"evaluation files {sorted(gpu_files)}")
+        for name in gpu_files:
+            require(gpu_files[name] == cpu_files[name],
+                    f"small evaluation ({mode}): {name} card vs CPU")
+        n_seg = gpu_files["segment/segment_evaluation.txt"].split(
+            b"\n")[0].decode()
+        log(f"small evaluation (test config, float32, kv_quant={mode}, "
+            f"fallback on every row with text): tokens of 4 decodes equal, "
+            f"{len(gpu_files)} files identical, card vs CPU; {n_seg}")
+
+
+def check_eval_full(torch, _build, params, cfg, mode, threshold, tokenizer,
+                    beams=1):
+    """evaluate_segment_level at whisper-tiny width in bf16 on 8 synthetic
+    30 s clips in batches of 4 (kv_quant `mode`, the fallback at
+    `threshold`), every launch counter reset just before and read just
+    after; K1 (int4 mode where asked), K2 (timestamp mode) and K3 must be
+    launched, K5 with beams, and no plain version may run on CUDA. Returns
+    a dict of what it measured."""
+    import tempfile
+
+    from audio_transformers_tpu_torch.core import MelConfig
+    from audio_transformers_tpu_torch.data.synthetic import SyntheticSeq2Seq
+    from audio_transformers_tpu_torch.infer import evaluate as ev
+    from audio_transformers_tpu_torch.infer.pipeline import \
+        DEFAULT_EMOTION_LABELS
+    from audio_transformers_tpu_torch.models.whisper import decode
+    from audio_transformers_tpu_torch.models.whisper import model as wm
+    from audio_transformers_tpu_torch.ops import decode_logits as dl
+    data = SyntheticSeq2Seq(num_samples=8,
+                            num_classes=cfg.num_emotion_classes,
+                            vocab_size=cfg.whisper.vocab_size, duration=30.0,
+                            seed=7)
+    styles = dict(enumerate(DEFAULT_EMOTION_LABELS))
+    dcfg = _segment_dcfg(kv_quant=mode, compression_ratio_threshold=threshold,
+                         num_beams=beams)
+    torch.cuda.synchronize()
+    _build.reset_stats()
+    with tempfile.TemporaryDirectory() as tmp, \
+            Spy(wm, "decode_cross_attention",
+                lambda a, k: k.get("k_scale") is not None
+                and k["k_scale"].dim() == 4) as k1_int4, \
+            Spy(dl, "fused_greedy_step",
+                lambda a, k: k.get("ts_bounds") is not None) as k2_ts, \
+            Spy(decode, "generate",
+                lambda a, k: a[2].temperature > 0,
+                keep=lambda a, k, out: a[3].shape[0]) as redo:
+        t0 = time.perf_counter()
+        res = ev.evaluate_segment_level(
+            params, cfg, MelConfig.whisper(), data.batcher(4),
+            styles, tokenizer=tokenizer, output_dir=tmp, dcfg=dcfg,
+            device="cuda", compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        files = sorted(os.listdir(tmp))
+    stats = {name: (s.launches, s.plain_cuda_calls)
+             for name, s in _build.STATS.items()}
+    what = (f"segment evaluation (whisper-tiny, bf16, 8 clips of 30 s in "
+            f"batches of 4, kv_quant={mode}, num_beams={beams}, fallback "
+            f"threshold {threshold}, tokenizer "
+            f"{'bytes' if tokenizer else 'none (id bytes)'})")
+    log(f"{what}: {wall:.3f} s ({wall / 2:.3f} s a batch, first call); "
+        f"{res['total_segments']} segments, accuracy {res['accuracy']:.4f}; "
+        f"fallback re-decoded {sum(redo.kept)} rows in {redo.calls} calls "
+        f"({redo.seconds:.3f} s); K1 calls in int4 mode {k1_int4.calls}, K2 "
+        f"calls in timestamp mode {k2_ts.calls}; launches / plain-on-CUDA "
+        f"calls: {stats}")
+    require(files == ["predictions.txt", "segment_evaluation.txt"],
+            f"{what}: files {files}")
+    require(res["total_segments"] >= 8, f"{what}: a segment per clip")
+    for name, (_, plain) in stats.items():
+        require(plain == 0, f"{what}: {name}'s plain version ran on CUDA")
+    needed = ("log_mel",) + (("permute_rows",) if beams > 1 else
+                             ("decode_cross_attention", "fused_greedy_step"))
+    for name in needed:
+        require(stats[name][0] > 0, f"{what}: {name} was not launched")
+    if beams == 1:
+        require(k2_ts.calls > 0, f"{what}: K2 never ran its timestamp mode")
+        if mode == "int4":
+            require(k1_int4.calls > 0 and k1_int4.calls
+                    == stats["decode_cross_attention"][0],
+                    f"{what}: K1 ran {k1_int4.calls} of "
+                    f"{stats['decode_cross_attention'][0]} calls in int4 mode")
+        if threshold < 1e-3:
+            require(sum(redo.kept) == 8,
+                    f"{what}: the fallback re-decoded {sum(redo.kept)} of 8 "
+                    f"rows")
+    return {"wall_s": wall, "segments": res["total_segments"],
+            "redecoded_rows": sum(redo.kept), "redecode_s": redo.seconds,
+            "launches": {k: v[0] for k, v in stats.items() if v[0]}}
 
 
 def main() -> int:
@@ -1230,6 +1551,10 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     times = {}
     err = {"decode_cross_attention": check_k1(torch, da, gen, times)}
+    # its own generator, so that the phases after it see the inputs they
+    # saw before it was added
+    err_int4 = check_k1_int4(
+        torch, da, torch.Generator(device="cuda").manual_seed(4), times)
     # bf16 (the serving path's dtype) runs K2's tensor-core source
     require(dl.SOURCE[torch.bfloat16] == "decode_logits_sm90",
             "bf16 K2 routes to csrc/decode_logits_sm90.cu")
@@ -1317,6 +1642,23 @@ def main() -> int:
     # 16. beam decode ms per step, K5 against the plain reorder
     beam_ms = time_beam_steps(torch, beam, pm, cfg, params)
 
+    # 17. segment and sequence evaluation at the test config: card vs CPU
+    check_small_evaluate(torch)
+
+    # 18. segment evaluation at whisper-tiny width, kv_quant none and int4,
+    # the fallback at the reference's 2.4 and at a threshold that flags
+    # every row (over the id bytes: the byte tokenizer turns few of
+    # whisper's ids into text, and an empty text flags nothing)
+    evals = {}
+    for mode in ("none", "int4"):
+        for threshold, tok in ((2.4, ByteTokenizer()), (1e-6, None)):
+            evals[(mode, threshold)] = check_eval_full(
+                torch, _build, params, cfg, mode, threshold, tok)
+
+    # 19. timestamped 4-beam segment evaluation with int4 cross K/V
+    evals["beams"] = check_eval_full(torch, _build, params, cfg, "int4", 2.4,
+                                     ByteTokenizer(), beams=N_BEAMS)
+
     kernels = []
     for name in SERVING:
         t4, t16 = times[4][name], times[16][name]
@@ -1328,6 +1670,14 @@ def main() -> int:
                     for k, v in times.get(b, {}).get(name, {}).items()}}
         if name in train_launches:
             entry["launches_training"] = train_launches[name]
+        # segment evaluation with int4 cross K/V (K1's int4 mode, K2's
+        # timestamp mode), the reference's threshold
+        entry["launches_eval_int4"] = evals[("int4", 2.4)]["launches"][name]
+        if name == "decode_cross_attention":
+            entry["max_abs_err"] = max(err[name], err_int4)
+            entry["max_abs_err_int4"] = err_int4
+            entry.update({f"int4_{k}_b{b}": v for b in (1, 4, 16)
+                          for k, v in times[b][f"{name}_int4"].items()})
         kernels.append(entry)
     for name in TRAINING[1:]:
         kernels.append({"name": name, "route": "cuda",
@@ -1346,6 +1696,9 @@ def main() -> int:
         "replaces": REPLACES["permute_rows"],
         "launches": beam_runs["none"]["permute_rows"][0],
         "launches_int8": beam_runs["int8"]["permute_rows"][0],
+        "launches_int4": beam_runs["int4"]["permute_rows"][0],
+        "launches_eval_beams_int4": evals["beams"]["launches"][
+            "permute_rows"],
         "max_abs_err": err["permute_rows"],
         "ms": k5[0], "plain_ms": k5[1], "bound_ms": k5[4][0],
         "bound_by": k5[4][1], "library_ms": None,

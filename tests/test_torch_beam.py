@@ -18,7 +18,9 @@ the budget. The "eos-prone" weights tilt the tied projection towards EOS
 so that hypotheses retire at different steps and rows finish early.
 """
 
+import contextlib
 import functools
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -321,6 +323,37 @@ def test_reorder_take_equals_k5(models, monkeypatch, case):
         assert torch.equal(a[k], b[k]), k
 
 
+# the test config with its timestamps at ids >= 600, so that beams mix
+# text and timestamps
+TS = W.replace(timestamp_begin_id=600)
+
+
+@pytest.mark.parametrize("model", ["random", "eos"])
+@pytest.mark.parametrize("case", ["int4", "timestamps", "timestamps_int4"])
+def test_int4_and_timestamps_match_jax(models, model, case):
+    # int4 cross K/V (dequantized for the beams' products, q not
+    # quantized, as in the reference) and the timestamp rule on the
+    # log-softmaxed scores, with the pipeline's processors
+    weights, enc = models
+    dcfg = DecodeConfig(max_new_tokens=20, num_beams=3,
+                        kv_quant="none" if case == "timestamps" else "int4",
+                        return_timestamps=case != "int4", **CHAIN)
+    cfg = W if case == "int4" else TS
+    with pytest.warns(UserWarning, match="int4") if case != "timestamps" \
+            else contextlib.nullcontext():
+        got = tbeam.generate_beam(weights[model][1], cfg, dcfg,
+                                  torch.from_numpy(enc))
+    with warnings.catch_warnings():
+        # the reference warns as it traces, once per compiled program
+        warnings.simplefilter("ignore")
+        want = jbeam.generate_beam(weights[model][0], cfg, dcfg,
+                                   jnp.asarray(enc))
+    _assert_beam_equal(got, {k: np.asarray(v) for k, v in want.items()})
+    if case != "int4":
+        toks = want["beam_tokens"][..., 1:]
+        assert (toks >= TS.timestamp_begin_id).any()
+
+
 def test_rejected_modes(models):
     weights, enc = models
     tpw = weights["random"][1]
@@ -330,10 +363,6 @@ def test_rejected_modes(models):
     with pytest.raises(ValueError, match="temperature"):
         tbeam.generate_beam(tpw, W, DecodeConfig(num_beams=3,
                                                  temperature=0.7), e)
-    for dcfg in (DecodeConfig(num_beams=2, kv_quant="int4"),
-                 DecodeConfig(num_beams=2, return_timestamps=True)):
-        with pytest.raises(NotImplementedError):
-            tbeam.generate_beam(tpw, W, dcfg, e)
     # the reference's TPU alternatives are not options of the port
     for kw, what in ((dict(beam_reorder="mm"), "one-hot"),
                      (dict(beam_reorder="take"), "permute_rows_reference"),

@@ -169,6 +169,62 @@ def test_k1_long_row_merges_in_one_round(cuda, hd):
         assert err <= K1_TOL[q_dtype], (mode, err)
 
 
+def _k1_int4_operands(cuda, b, t, q_dtype, g, h=6, hd=64):
+    """q and int4 K/V packed along time (B, H, hd, T/2), the K scales
+    split even/odd (B, H, 2, T/2), as precompute_cross_attention makes
+    them."""
+    q = torch.randn((b, h, hd), generator=g, device=cuda)
+    k = torch.randn((b, h, hd, t), generator=g, device=cuda)
+    v = torch.randn((b, h, hd, t), generator=g, device=cuda)
+    ks, vs = k.abs().amax(dim=2) / 7.0, v.abs().amax(dim=3) / 7.0
+    kp = da.pack_int4(torch.round(k / ks[:, :, None, :]))
+    vp = da.pack_int4(torch.round(v / vs[:, :, :, None]))
+    ks2 = torch.stack([ks[..., 0::2], ks[..., 1::2]], dim=2).contiguous()
+    return q.to(q_dtype), kp, vp, {"k_scale": ks2, "v_scale": vs}
+
+
+@pytest.mark.parametrize("t,t_valid", [
+    *((1500, tv) for tv in (1, 2, 63, 511, 512, 513, 1023, 1499, 1500)),
+    (20000, 20000), (20000, 12345)])
+@pytest.mark.parametrize("b", [1, 3, 4, 16, 48])
+@pytest.mark.parametrize("hd", [8, 64, 128])
+def test_k1_int4_matches_plain(cuda, hd, b, t, t_valid):
+    # int4 (nibble-packed K/V, even/odd K scales): t_valid odd masks the
+    # high nibble of the last byte; chunks of 256 bytes (512 keys); T
+    # = 1500 puts the 750-byte rows 14 bytes off the 16-byte grid; two
+    # launches bit-equal
+    g = _gen(hd * 7 + b * 131 + t_valid)
+    for q_dtype in (torch.float32, torch.bfloat16):
+        q, kp, vp, kw = _k1_int4_operands(cuda, b, t, q_dtype, g, hd=hd)
+        before = _build.STATS["decode_cross_attention"].launches
+        got = da.decode_cross_attention(q, kp, vp, t_valid=t_valid, **kw)
+        got2 = da.decode_cross_attention(q, kp, vp, t_valid=t_valid, **kw)
+        assert _build.STATS["decode_cross_attention"].launches == before + 2
+        want = da.decode_cross_attention_reference(q, kp, vp,
+                                                   t_valid=t_valid, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == q_dtype and got.shape == q.shape
+        assert torch.equal(got, got2), q_dtype
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= K1_TOL[q_dtype], (q_dtype, err)
+
+
+@pytest.mark.parametrize("hd", [8, 64, 128])
+def test_k1_int4_long_row_merges_in_one_round(cuda, hd):
+    g = _gen(hd + 1)
+    for q_dtype in (torch.float32, torch.bfloat16):
+        q, kp, vp, kw = _k1_int4_operands(cuda, 1, 40000, q_dtype, g, h=1,
+                                          hd=hd)
+        got = da.decode_cross_attention(q, kp, vp, t_valid=39999, **kw)
+        got2 = da.decode_cross_attention(q, kp, vp, t_valid=39999, **kw)
+        want = da.decode_cross_attention_reference(q, kp, vp, t_valid=39999,
+                                                   **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, got2), q_dtype
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= K1_TOL[q_dtype], (q_dtype, err)
+
+
 def test_k1_rejects_bad_operands(cuda):
     q = torch.randn((1, 2, 16), device=cuda)
     k = torch.randn((1, 2, 16, 32), device=cuda)
@@ -179,6 +235,17 @@ def test_k1_rejects_bad_operands(cuda):
                                   .transpose(2, 3), k)
     with pytest.raises(TypeError):
         da.decode_cross_attention(q.half(), k, k)
+    # int4: the K scales are (B, H, 2, T/2) and t_valid counts keys
+    kp = torch.zeros((1, 2, 16, 16), dtype=torch.int8, device=cuda)
+    vs = torch.ones((1, 2, 16), device=cuda)
+    with pytest.raises(ValueError):
+        da.decode_cross_attention(q, kp, kp, v_scale=vs,
+                                  k_scale=torch.ones((1, 2, 1, 16),
+                                                     device=cuda)[:, :, :2])
+    with pytest.raises(ValueError):
+        da.decode_cross_attention(q, kp, kp, v_scale=vs, t_valid=33,
+                                  k_scale=torch.ones((1, 2, 2, 16),
+                                                     device=cuda))
 
 
 # --------------------------------------------------------------------------
@@ -416,7 +483,8 @@ def test_k3_rejects_what_it_cannot_take(cuda):
 # --------------------------------------------------------------------------
 
 
-def test_generate_on_cuda_matches_cpu(cuda):
+@pytest.mark.parametrize("mode", ["greedy", "timestamps_int4"])
+def test_generate_on_cuda_matches_cpu(cuda, mode):
     cfg = EmotionWhisperConfig(whisper=WhisperConfig.test(),
                                num_emotion_classes=4)
     w = cfg.whisper
@@ -425,6 +493,8 @@ def test_generate_on_cuda_matches_cpu(cuda):
                          generator=torch.Generator().manual_seed(1))
     dcfg = DecodeConfig(max_new_tokens=20, repetition_penalty=1.15,
                         no_repeat_ngram_size=3)
+    if mode == "timestamps_int4":
+        dcfg = dcfg.replace(return_timestamps=True, kv_quant="int4")
     outs = []
     for dev in (cuda, torch.device("cpu")):
         p = cp.to_device(params, dev)
@@ -718,7 +788,7 @@ def test_k5_rejects_bad_operands(cuda):
         pm.permute_rows([x.cpu()], perm)
 
 
-@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+@pytest.mark.parametrize("kv_quant", ["none", "int8", "int4"])
 def test_beam_on_cuda_matches_cpu(cuda, kv_quant):
     from audio_transformers_tpu_torch.models.whisper import beam
     cfg = EmotionWhisperConfig(whisper=WhisperConfig.test(),
@@ -727,8 +797,10 @@ def test_beam_on_cuda_matches_cpu(cuda, kv_quant):
     params = cp.init(cfg, torch.Generator().manual_seed(0))["whisper"]
     mel_in = torch.randn((3, 2 * w.max_source_positions, w.n_mels),
                          generator=torch.Generator().manual_seed(1))
+    # int4 also with the timestamp rule, as segment evaluation decodes
     dcfg = DecodeConfig(max_new_tokens=20, num_beams=3, kv_quant=kv_quant,
-                        repetition_penalty=1.15, no_repeat_ngram_size=3)
+                        repetition_penalty=1.15, no_repeat_ngram_size=3,
+                        return_timestamps=kv_quant == "int4")
     outs = []
     for dev in (cuda, torch.device("cpu")):
         p = cp.to_device(params, dev)

@@ -130,6 +130,9 @@ def test_k1_split_plan_at_the_serving_shapes():
     assert da.split_plan(24, 1500, 2, 64) == (128, 12)
     assert da.split_plan(96, 1500, 2, 64) == (512, 3)
     assert da.split_plan(96, 1500, 1, 64) == (512, 3)
+    # int4 plans its 750 packed bytes: 3 splits of one sub-tile (512 keys)
+    assert da.split_plan(6, 750, 1, 64) == (256, 3)
+    assert da.split_plan(96, 750, 1, 64) == (256, 3)
     # one (b, h) of long float32 K/V: the ring's 263 splits bound the plan
     assert da.split_plan(1, 20000, 4, 64) == (128, 157)
 
@@ -146,14 +149,52 @@ def test_k1_custom_scale_and_bf16_dtype():
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
 
 
-def test_k1_int4_waits():
-    rng = np.random.default_rng(0)
-    q, k, v, _, _ = _k1_inputs(rng)
-    with pytest.raises(NotImplementedError):
-        da.decode_cross_attention(_t(q), _t(k[..., :20]).to(torch.int8),
-                                  _t(v[..., :20]).to(torch.int8),
-                                  k_scale=torch.ones(2, 3, 2, 20),
-                                  v_scale=torch.ones(2, 3, 16))
+def _k1_int4_inputs(rng, b=2, h=3, hd=16, t=512):
+    """Packed int4 K/V (B, H, hd, T/2) with even/odd K scales, as the
+    reference's precompute_cross_attention(quant="int4") lays them out."""
+    q = rng.standard_normal((b, h, hd)).astype(np.float32)
+    k = rng.standard_normal((b, h, hd, t)).astype(np.float32)
+    v = rng.standard_normal((b, h, hd, t)).astype(np.float32)
+    ks = (np.abs(k).max(axis=2) / 7.0).astype(np.float32)        # (B,H,T)
+    vs = (np.abs(v).max(axis=3) / 7.0).astype(np.float32)        # (B,H,hd)
+    kq = np.round(k / ks[:, :, None, :]).astype(np.int32)
+    vq = np.round(v / vs[:, :, :, None]).astype(np.int32)
+    kp = np.asarray(jda.pack_int4(jnp.asarray(kq)))
+    vp = np.asarray(jda.pack_int4(jnp.asarray(vq)))
+    ks2 = np.stack([ks[..., 0::2], ks[..., 1::2]], axis=2)       # (B,H,2,T/2)
+    return q, kp, vp, ks2, vs
+
+
+@pytest.mark.parametrize("t_valid", [None, 501, 256, 1])
+def test_k1_int4_plain_matches_pallas(t_valid):
+    # the int4 mode (a 4-D k_scale) against the JAX kernel interpreted and
+    # its oracle; t_valid 501 is odd, so the high nibble of the last byte
+    # is masked; T = 512 is the kernel's int4 time block at that length
+    rng = np.random.default_rng(11)
+    q, kp, vp, ks2, vs = _k1_int4_inputs(rng)
+    jkw = {"k_scale": jnp.asarray(ks2), "v_scale": jnp.asarray(vs)}
+    want_kernel = np.asarray(jda.decode_cross_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), **jkw,
+        t_valid=t_valid, interpret=True))
+    got = _np(da.decode_cross_attention(
+        _t(q), _t(kp), _t(vp), k_scale=_t(ks2), v_scale=_t(vs),
+        t_valid=t_valid))
+    np.testing.assert_allclose(got, want_kernel, atol=K1_TOL, rtol=0)
+    if t_valid is None or t_valid % 2 == 0:
+        # the oracle has no t_valid: cut the packed bytes to the keys
+        c = (t_valid or 512) // 2
+        want_ref = np.asarray(jda.decode_cross_attention_reference(
+            jnp.asarray(q), jnp.asarray(kp[..., :c]), jnp.asarray(vp[..., :c]),
+            k_scale=jnp.asarray(ks2[..., :c]), v_scale=jnp.asarray(vs)))
+        np.testing.assert_allclose(got, want_ref, atol=K1_TOL, rtol=0)
+    # the packed keys are the int8 mode's keys with even/odd scales
+    kq = _np(da.unpack_int4(_t(kp)))
+    vq = _np(da.unpack_int4(_t(vp)))
+    ks = ks2.transpose(0, 1, 3, 2).reshape(*ks2.shape[:2], -1)
+    as_int8 = _np(da.decode_cross_attention(
+        _t(q), _t(kq.astype(np.int8)), _t(vq.astype(np.int8)),
+        k_scale=_t(ks), v_scale=_t(vs), t_valid=t_valid))
+    np.testing.assert_allclose(got, as_int8, atol=K1_TOL, rtol=0)
 
 
 def test_pack_int4_matches_jax():

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports nothing of JAX or of the JAX package,
+"""The port stands alone: it imports nothing of JAX, of the JAX package or
+of scikit-learn (the card's machine has none),
 its copies of the package's JAX-free modules (configs, audio utilities,
 the synthetic Expresso data, the micro-batcher) behave as the originals,
 and its entry points run on the card unless the caller asks for the CPU.
@@ -32,10 +33,14 @@ from audio_transformers_tpu_torch.utils import audio as paudio
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_IMPORT_ALL = """
-import importlib, pkgutil, runpy, sys
-sys.modules["jax"] = None
-sys.modules["audio_transformers_tpu"] = None
+_BLOCK = """
+import sys
+for blocked in ("jax", "audio_transformers_tpu", "sklearn"):
+    sys.modules[blocked] = None
+"""
+
+_IMPORT_ALL = _BLOCK + """
+import importlib, pkgutil, runpy
 import audio_transformers_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__,
                                                port.__name__ + ".")]
@@ -44,9 +49,42 @@ for name in names:
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")
 runpy.run_path("tests/test_torch_cuda.py", run_name="test_torch_cuda")
 leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
-                and (m.split(".")[0] in ("jax", "audio_transformers_tpu")))
+                and (m.split(".")[0] in ("jax", "audio_transformers_tpu",
+                                         "sklearn")))
 assert not leaked, leaked
 print(len(names))
+"""
+
+# segment and sequence evaluation at the test config on the CPU, with
+# jax, the JAX package and sklearn blocked: the metrics and the files
+_EVALUATE = _BLOCK + """
+import os, sys, tempfile
+import torch
+from audio_transformers_tpu_torch.core import (DecodeConfig,
+                                               EmotionWhisperConfig,
+                                               MelConfig, WhisperConfig)
+from audio_transformers_tpu_torch.core.params import init
+from audio_transformers_tpu_torch.data.synthetic import SyntheticSeq2Seq
+from audio_transformers_tpu_torch.data.tokenizer import ByteTokenizer
+from audio_transformers_tpu_torch.infer import evaluate as ev
+cfg = EmotionWhisperConfig(whisper=WhisperConfig.test(), num_emotion_classes=3)
+params = init(cfg, torch.Generator().manual_seed(0))
+mel_cfg = MelConfig.whisper(n_mels=cfg.whisper.n_mels)
+data = SyntheticSeq2Seq(num_samples=3, num_classes=3, duration=1.28)
+out = tempfile.mkdtemp()
+seq = ev.evaluate_sequence_level(
+    params, cfg, mel_cfg, data.batcher(2), {0: "a", 1: "b", 2: "c"},
+    tokenizer=ByteTokenizer(), output_dir=out, device="cpu",
+    dcfg=DecodeConfig(max_new_tokens=6))
+seg = ev.evaluate_segment_level(
+    params, cfg, mel_cfg, data.batcher(2), {0: "a", 1: "b", 2: "c"},
+    tokenizer=ByteTokenizer(), output_dir=out, device="cpu",
+    dcfg=DecodeConfig(max_new_tokens=6, return_timestamps=True,
+                      kv_quant="int4", compression_ratio_threshold=0.01))
+assert seq["samples"] == 3 and seg["total_segments"] >= 3
+assert "weighted avg" in seg["report"]
+assert "sklearn" not in sys.modules or sys.modules["sklearn"] is None
+print(" ".join(sorted(os.listdir(out))))
 """
 
 
@@ -55,6 +93,14 @@ def test_port_imports_nothing_of_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert int(out.stdout.split()[-1]) >= 30
+
+
+def test_evaluation_stands_alone():
+    out = subprocess.run([sys.executable, "-c", _EVALUATE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split() == ["metrics.txt", "predictions.txt",
+                                  "segment_evaluation.txt"]
 
 
 # --------------------------------------------------------------------------
