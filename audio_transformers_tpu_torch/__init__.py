@@ -5,22 +5,27 @@ The serving path of the EmotionWhisper model on an NVIDIA Hopper GPU
 greedy decode with the HF logit-processor chain, emotion head and the
 HTTP server) and its dual-loss training path (teacher-forced
 encoder-decoder with flash attention forward and backward, AdamW with
-warmup and decay, the train_whisper CLI). The JAX package `audio_transformers_tpu` stays the
-reference; this package imports only its JAX-free modules (configs,
+warmup and decay, the train_whisper CLI), beam search, segment-level
+evaluation and model I/O (HF directories both ways, checkpoints and
+resume, the infer and evaluate CLIs). The JAX package
+`audio_transformers_tpu` stays the reference; this package imports
+nothing of it and keeps its own copies of its JAX-free modules (configs,
 audio IO, tokenizer, datasets and batcher, metric logger, micro-batcher,
 HTTP handler).
 
 Subpackages:
   core/      parameter trees (the weights bridge from JAX, a seeded init,
-             trainable leaves) and the step timer
+             trainable leaves), checkpoints and the step timer
   ops/       nn primitives, log-mel, logit processors, flash attention, and
              the hand-written CUDA kernels (csrc/) with their plain PyTorch
              versions
-  models/    whisper encoder-decoder, greedy decode, emotion head
-  infer/     EmotionWhisperPipeline
-  serve/     HTTP entry point over the reference package's handler
+  models/    whisper encoder-decoder, greedy and beam decode, emotion
+             head, HF weight loading
+  infer/     EmotionWhisperPipeline, evaluation and its metrics
+  serve/     HTTP entry point and micro-batcher
   train/     optimizer and schedules, the whisper-emotion trainer
-  cli/       train_whisper
+  utils/     audio IO, the safetensors reader and writer, HF export
+  cli/       train_whisper, infer, evaluate, evaluate_simple
 """
 
 __version__ = "0.1.0"

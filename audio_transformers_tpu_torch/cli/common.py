@@ -1,6 +1,6 @@
-"""Shared CLI plumbing: dataset construction from flags (the port's copy
-of the reference package's `cli/common.py`, the parts the training CLI
-reaches)."""
+"""Shared CLI plumbing: dataset construction and model loading from flags
+(the port's copy of the reference package's `cli/common.py`, without the
+classifier's batchers)."""
 
 from __future__ import annotations
 
@@ -42,3 +42,38 @@ def get_tokenizer(name_or_path: Optional[str]):
     if name_or_path in (None, "", "byte"):
         return ByteTokenizer()
     return load_tokenizer(name_or_path)
+
+
+def load_pipeline(model_path: Optional[str], *, tokenizer=None, **kwargs):
+    """An EmotionWhisperPipeline from a --model_path value, the one loader
+    of the infer, evaluate and evaluate_simple CLIs and the server: an HF
+    directory (model.safetensors or pytorch_model.bin) goes to
+    `from_hf_dir`, any other path to `from_checkpoint`, and None to
+    whisper-tiny with seeded random weights (`torch.Generator` seed 0).
+    Keyword arguments (device, compute_dtype, kv_quant, num_beams) go to
+    the pipeline on every path."""
+    import os
+
+    import torch
+
+    from audio_transformers_tpu_torch.infer.pipeline import \
+        EmotionWhisperPipeline
+
+    if model_path is None:
+        from audio_transformers_tpu_torch.core.config import \
+            EmotionWhisperConfig
+        from audio_transformers_tpu_torch.core.params import (init,
+                                                              resolve_device)
+        resolve_device(kwargs.get("device", "cuda"))
+        cfg = EmotionWhisperConfig()
+        params = init(cfg, torch.Generator().manual_seed(0))
+        return EmotionWhisperPipeline(params, cfg, tokenizer=tokenizer,
+                                      **kwargs)
+    if any(os.path.exists(os.path.join(model_path, name))
+           for name in ("model.safetensors", "pytorch_model.bin")):
+        return EmotionWhisperPipeline.from_hf_dir(model_path,
+                                                  tokenizer=tokenizer,
+                                                  **kwargs)
+    return EmotionWhisperPipeline.from_checkpoint(model_path,
+                                                  tokenizer=tokenizer,
+                                                  **kwargs)

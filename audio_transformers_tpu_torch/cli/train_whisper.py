@@ -8,9 +8,12 @@ Flag-compatible with the reference package's `cli/train_whisper.py`, plus
   python -m audio_transformers_tpu_torch.cli.train_whisper --device cpu \\
       --model_size test --compute_dtype float32 --num_epochs 1
 
-Not ported yet, and raising NotImplementedError: --pretrained and
---hf_repo_id (HF weight loading and hub export with the torch checkpoint
-bundle, ROADMAP queue items 4 and 9) and --spec_augment.
+--pretrained starts from an HF directory or .safetensors file (the
+whisper weights, and the emotion head when its class count fits the
+dataset); --hf_repo_id exports the best epoch as an HF directory to
+<output_dir>/hf_export and uploads it (with HF_ACCESS set). Rerunning
+with the same --output_dir resumes from its resume/ directory. Not
+ported yet, and raising NotImplementedError: --spec_augment.
 """
 
 from __future__ import annotations
@@ -54,14 +57,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.pretrained:
-        raise NotImplementedError(
-            "--pretrained is not ported yet (HF weight loading and the "
-            "checkpoint bundle, ROADMAP queue items 4 and 9)")
-    if args.hf_repo_id:
-        raise NotImplementedError(
-            "--hf_repo_id is not ported yet (hub export needs the torch "
-            "checkpoint bundle, ROADMAP queue items 4 and 9)")
 
     from audio_transformers_tpu_torch.cli.common import (
         build_expresso_splits, get_tokenizer)
@@ -86,6 +81,28 @@ def main(argv=None):
 
     cfg = EmotionWhisperConfig(whisper=whisper_cfg,
                                num_emotion_classes=num_classes)
+
+    init_params = None
+    if args.pretrained:
+        import torch
+
+        from audio_transformers_tpu_torch.core.params import linear_init
+        from audio_transformers_tpu_torch.models.whisper.load import (
+            from_torch_state_dict, load_safetensors)
+        whisper_params, emotion = from_torch_state_dict(
+            load_safetensors(args.pretrained), cfg.whisper)
+        if emotion is not None and emotion["w"].shape[0] != num_classes:
+            # a narrower head would index past its classes in the emotion
+            # loss; a wider one would export a config.json inconsistent
+            # with the weights
+            print(f"[train] pretrained emotion head has "
+                  f"{emotion['w'].shape[0]} classes but the dataset has "
+                  f"{num_classes}; reinitializing the head")
+            emotion = None
+        if emotion is None:
+            emotion = linear_init(torch.Generator().manual_seed(args.seed),
+                                  whisper_cfg.d_model, num_classes)
+        init_params = {"whisper": whisper_params, "emotion_head": emotion}
     train_cfg = TrainConfig(
         batch_size=args.batch_size, num_epochs=args.num_epochs,
         seed=args.seed, compute_dtype=args.compute_dtype,
@@ -99,9 +116,19 @@ def main(argv=None):
         cfg, mel_cfg, train_cfg,
         train_ds.batcher(args.batch_size, num_workers=args.num_workers),
         val_ds.batcher(args.batch_size, num_workers=args.num_workers),
-        device=args.device, style_to_idx=style_to_idx,
-        output_dir=args.output_dir, wandb_project=args.wandb_project)
+        device=args.device, init_params=init_params,
+        style_to_idx=style_to_idx, output_dir=args.output_dir,
+        wandb_project=args.wandb_project)
     print(f"best val loss: {out['best_val_loss']:.4f}")
+
+    if args.hf_repo_id:
+        from audio_transformers_tpu_torch.utils.hub import (export_hf_dir,
+                                                            push_to_hub)
+        hf_dir = export_hf_dir(out["best_params"], cfg,
+                               f"{args.output_dir}/hf_export",
+                               style_to_idx=style_to_idx,
+                               val_loss=out["best_val_loss"])
+        push_to_hub(hf_dir, args.hf_repo_id)
     return out
 
 

@@ -5,31 +5,40 @@ with the same surface (`analyze_windows`, `transcribe`, `analyze`) and the
 same batching: model windows are stacked into power-of-two buckets capped
 at `max_batch`, each bucket goes through log-mel -> encoder -> greedy
 decode, or beam search with `num_beams` > 1 (repetition penalty 1.15,
-no-repeat 3-gram) -> emotion head on the decode's hidden states. Loading
-from orbax checkpoints or HF directories is not ported yet; build the
-pipeline from bridged or seeded parameters (`core.params`). The pipeline
-runs on the card unless the caller asks for the CPU (`device="cpu"`); it
-raises when CUDA is asked for and absent.
+no-repeat 3-gram) -> emotion head on the decode's hidden states. A
+pipeline loads from the port's checkpoints (`from_checkpoint`), from HF
+directories (`from_hf_dir`, also the JAX package's exports), or takes
+bridged or seeded parameters (`core.params`). It runs on the card unless
+the caller asks for the CPU (`device="cpu"`); it raises when CUDA is asked
+for and absent.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from audio_transformers_tpu_torch.core.checkpoint import (Checkpointer,
+                                                          load_label_map)
 from audio_transformers_tpu_torch.core.config import (DecodeConfig,
                                                       EmotionWhisperConfig,
-                                                      MelConfig)
+                                                      MelConfig,
+                                                      WhisperConfig)
 from audio_transformers_tpu_torch.core.params import (compute_dtype_for,
-                                                      init, resolve_device,
+                                                      init, linear_init,
+                                                      resolve_device,
                                                       to_device)
 from audio_transformers_tpu_torch.models.whisper import beam as wbeam
 from audio_transformers_tpu_torch.models.whisper import decode as wdecode
 from audio_transformers_tpu_torch.models.whisper import emotion as emo
 from audio_transformers_tpu_torch.models.whisper import model as wm
+from audio_transformers_tpu_torch.models.whisper.load import (
+    config_from_json, from_torch_state_dict, load_safetensors)
 from audio_transformers_tpu_torch.ops.mel import log_mel
 from audio_transformers_tpu_torch.utils.audio import resample, to_mono
 
@@ -70,6 +79,89 @@ class EmotionWhisperPipeline:
         # model window in samples: enc positions * conv stride * hop
         self._window = (cfg.whisper.max_source_positions * 2
                         * self.mel_cfg.hop_length)
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_dir: str, *, tokenizer=None,
+                        step: Optional[int] = None, device="cuda",
+                        compute_dtype: Optional[torch.dtype] = None,
+                        kv_quant: str = "none", num_beams: int = 1
+                        ) -> "EmotionWhisperPipeline":
+        """A pipeline from a checkpoint directory the trainer wrote
+        (checkpoints/ or resume/; the latest step unless `step`). The
+        config, mel config, label map and suppress ids come from the
+        step's metadata; without a config the head's width gives the
+        class count."""
+        device = resolve_device(device)
+        tree, meta, _ = Checkpointer(checkpoint_dir).restore(step=step)
+        params = tree["params"] if "params" in tree else tree
+        meta = meta or {}
+        if "cfg" in meta:
+            cfg = EmotionWhisperConfig.from_dict(_loads_maybe(meta["cfg"]))
+        else:
+            cfg = EmotionWhisperConfig(
+                num_emotion_classes=params["emotion_head"]["w"].shape[0])
+        mel_cfg = (MelConfig.from_dict(_loads_maybe(meta["mel_cfg"]))
+                   if "mel_cfg" in meta else None)
+        idx_to_label = None
+        if meta.get("style_to_idx"):
+            idx_to_label = {int(v): k
+                            for k, v in meta["style_to_idx"].items()}
+        suppress = meta.get("suppress_ids")
+        return cls(params, cfg, mel_cfg, idx_to_label, tokenizer=tokenizer,
+                   device=device, compute_dtype=compute_dtype,
+                   kv_quant=kv_quant, num_beams=num_beams,
+                   suppress_ids=tuple(suppress) if suppress else None)
+
+    @classmethod
+    def from_hf_dir(cls, model_dir: str, *, tokenizer=None,
+                    num_emotion_classes: int = 10, device="cuda",
+                    compute_dtype: Optional[torch.dtype] = None,
+                    kv_quant: str = "none", num_beams: int = 1
+                    ) -> "EmotionWhisperPipeline":
+        """A pipeline from an HF-format directory (model.safetensors or
+        pytorch_model.bin; the reference's save_pretrained output and
+        both packages' `export_hf_dir`). config.json gives the geometry
+        and `num_emotion_classes`, style_to_id.txt the label map and
+        generation_config.json's `suppress_tokens` the suppress ids. A
+        plain whisper export without an `emotion_classifier` gets a fresh
+        head from `torch.Generator().manual_seed(0)`; the JAX package
+        draws its fresh head from `jax.random.PRNGKey(0)`, so the two
+        packages' heads differ by construction."""
+        device = resolve_device(device)
+        sd = load_safetensors(model_dir)
+        cfg_path = os.path.join(model_dir, "config.json")
+        if os.path.exists(cfg_path):
+            with open(cfg_path) as f:
+                raw = json.load(f)
+            whisper_cfg = config_from_json(raw)
+            num_emotion_classes = raw.get("num_emotion_classes",
+                                          num_emotion_classes)
+        else:
+            whisper_cfg = WhisperConfig.tiny()
+        cfg = EmotionWhisperConfig(whisper=whisper_cfg,
+                                   num_emotion_classes=num_emotion_classes)
+        whisper_params, emotion = from_torch_state_dict(sd, cfg.whisper)
+        del sd
+        if not emotion:
+            emotion = linear_init(torch.Generator().manual_seed(0),
+                                  whisper_cfg.d_model,
+                                  cfg.num_emotion_classes)
+        params = {"whisper": whisper_params, "emotion_head": emotion}
+        idx_to_label = None
+        lm = os.path.join(model_dir, "style_to_id.txt")
+        if os.path.exists(lm):
+            idx_to_label = {v: k for k, v in load_label_map(lm).items()}
+        suppress = None
+        gc_path = os.path.join(model_dir, "generation_config.json")
+        if os.path.exists(gc_path):
+            with open(gc_path) as f:
+                gc = json.load(f)
+            if gc.get("suppress_tokens"):
+                suppress = tuple(int(t) for t in gc["suppress_tokens"])
+        return cls(params, cfg, idx_to_label=idx_to_label,
+                   tokenizer=tokenizer, device=device,
+                   compute_dtype=compute_dtype, kv_quant=kv_quant,
+                   num_beams=num_beams, suppress_ids=suppress)
 
     def _prep(self, waveform: np.ndarray, sr: int) -> np.ndarray:
         wav = to_mono(np.asarray(waveform, dtype=np.float32))
@@ -192,6 +284,10 @@ class EmotionWhisperPipeline:
                                                  str(int(p.argmax()))),
             })
         return {"transcription": transcription, "segments": segments}
+
+
+def _loads_maybe(obj):
+    return json.loads(obj) if isinstance(obj, str) else obj
 
 
 def self_test(duration: float = 12.0, *, device="cuda") -> dict:

@@ -7,13 +7,16 @@ the port's copies of the reference package's stdlib server
 pipeline. Run:
 
     python -m audio_transformers_tpu_torch.serve.http_server \
-        [--params bridged.pt] [--config tiny|test] [--device cuda|cpu] \
+        [--model_path DIR] [--tokenizer NAME] [--device cuda|cpu] \
         [--port 8501]
 
-Without `--params` the weights are a seeded random init. A `.pt` file
-holds a port parameter tree (`core.params.from_jax_params` of a JAX tree,
-saved with `torch.save`). The server runs on the card; `--device cpu`
-asks for the CPU.
+`--model_path` takes a checkpoint directory the trainer wrote or an HF
+directory (`cli.common.load_pipeline`); without it the weights are seeded
+random whisper-tiny. `--tokenizer` names an HF tokenizer (default: the
+byte tokenizer). `--params` (a `.pt` of a port parameter tree, e.g.
+`core.params.from_jax_params` of a JAX tree) with `--config` (a whisper
+size) serves a bare tree instead. The server runs on the card;
+`--device cpu` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
+from audio_transformers_tpu_torch.cli import common
 from audio_transformers_tpu_torch.core import (EmotionWhisperConfig,
                                                WhisperConfig)
 from audio_transformers_tpu_torch.core.params import init, resolve_device
@@ -35,13 +39,24 @@ from audio_transformers_tpu_torch.utils.audio import (decode_audio_bytes,
 __all__ = ["MicroBatcher", "build_pipeline", "main", "make_handler", "serve"]
 
 
-def build_pipeline(*, config: str = "tiny", params_path=None,
-                   kv_quant: str = "none", num_beams: int = 1,
+def build_pipeline(*, model_path=None, tokenizer=None, config: str = "tiny",
+                   params_path=None, kv_quant: str = "none",
+                   num_beams: int = 1,
                    device="cuda") -> EmotionWhisperPipeline:
-    """The port's pipeline from a saved parameter tree (its emotion head
-    gives the class count) or from a seeded init with 10 classes, on
-    `device`: bfloat16 on the card, float32 on the CPU; raises when CUDA is
-    asked for and absent. num_beams > 1 serves beam-search decoding."""
+    """The served pipeline on `device` (bfloat16 on the card, float32 on
+    the CPU; raises when CUDA is asked for and absent). `model_path` (a
+    checkpoint or HF directory) or, with neither it nor `params_path`,
+    seeded whisper-tiny goes through `cli.common.load_pipeline`. Otherwise
+    the weights are the saved tree at `params_path` (its emotion head
+    gives the class count) or a seeded init of the `config` size with 10
+    classes. num_beams > 1 serves beam-search decoding."""
+    kw = dict(tokenizer=tokenizer, kv_quant=kv_quant, num_beams=num_beams,
+              device=device)
+    if params_path is None and config == "tiny":
+        return common.load_pipeline(model_path, **kw)
+    if model_path is not None:
+        raise ValueError("a model path holds its own weights and config: "
+                         "pass it without params_path or config")
     device = resolve_device(device)
     if params_path:
         params = torch.load(params_path, map_location="cpu")
@@ -52,8 +67,7 @@ def build_pipeline(*, config: str = "tiny", params_path=None,
                                num_emotion_classes=n_classes)
     if params is None:
         params = init(cfg, torch.Generator().manual_seed(0))
-    return EmotionWhisperPipeline(params, cfg, device=device,
-                                  kv_quant=kv_quant, num_beams=num_beams)
+    return EmotionWhisperPipeline(params, cfg, **kw)
 
 
 _PAGE = """<!doctype html>
@@ -217,10 +231,16 @@ def serve(pipeline, *, host: str = "127.0.0.1", port: int = 8501,
 
 def main(argv=None):
     p = argparse.ArgumentParser(description="Serve the emotion demo (PyTorch)")
+    p.add_argument("--model_path", default=None,
+                   help="checkpoint dir or HF dir; default: seeded init")
+    p.add_argument("--tokenizer", default=None,
+                   help="HF tokenizer path (default: byte tokenizer)")
     p.add_argument("--params", default=None,
-                   help=".pt of a port parameter tree; default: seeded init")
+                   help=".pt of a port parameter tree (instead of "
+                        "--model_path)")
     p.add_argument("--config", default="tiny",
-                   help="whisper size name (tiny, base, ..., test)")
+                   help="whisper size of --params or of a seeded init "
+                        "(tiny, base, ..., test)")
     p.add_argument("--kv_quant", default="none",
                    choices=["none", "int8", "int4"],
                    help="quantize the decode K/V caches (the cross K/V in "
@@ -233,7 +253,9 @@ def main(argv=None):
     p.add_argument("--no_microbatch", action="store_true")
     p.add_argument("--microbatch_wait_ms", type=float, default=10.0)
     args = p.parse_args(argv)
-    pipeline = build_pipeline(config=args.config, params_path=args.params,
+    pipeline = build_pipeline(model_path=args.model_path,
+                              tokenizer=common.get_tokenizer(args.tokenizer),
+                              config=args.config, params_path=args.params,
                               kv_quant=args.kv_quant, device=args.device)
     serve(pipeline, host=args.host, port=args.port,
           segment_duration=args.segment_duration,

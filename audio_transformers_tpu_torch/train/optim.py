@@ -130,6 +130,15 @@ class Optimizer:
         self.opt.step()
         self.count += 1
 
+    def state_dict(self) -> dict:
+        """{"count": updates so far (the schedule's position), "torch":
+        the torch optimizer's state_dict (moments and learning rates)}."""
+        return {"count": self.count, "torch": self.opt.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.opt.load_state_dict(state["torch"])
+        self.count = int(state["count"])
+
 
 def build_optimizer(cfg: OptimizerConfig, params,
                     total_steps: Optional[int] = None,

@@ -14,11 +14,15 @@ Loss masking is the reference's: `mask_mode="pad"` ignores every target
 equal to the pad id (whisper's pad is <|endoftext|>, so EOS is not
 supervised either); "keep_first_eos" supervises the first pad/EOS per row.
 
+With an output directory a run keeps the reference's two checkpoint
+directories (`core/checkpoint.py`): checkpoints/ holds the best epochs by
+val loss (params and the metadata `from_checkpoint` reads) and resume/
+the last epoch's full state (params, optimizer moments, the schedule's
+position), from which a rerun with the same output directory resumes.
+
 Not ported yet, and raising NotImplementedError: SpecAugment (the
-reference draws its masks from jax.random; it needs its own slice),
-activation checkpointing (remat), and checkpoint/resume directories (they
-wait for the torch checkpoint bundle, ROADMAP queue item 9), so a run
-keeps its best parameters as a host snapshot only.
+reference draws its masks from jax.random; it needs its own slice) and
+activation checkpointing (remat).
 """
 
 from __future__ import annotations
@@ -34,6 +38,9 @@ import torch.nn.functional as F
 from audio_transformers_tpu_torch.core.config import (
     EmotionWhisperConfig, MelConfig, TrainConfig)
 from audio_transformers_tpu_torch.core import params as cp
+from audio_transformers_tpu_torch.core.checkpoint import (Checkpointer,
+                                                          check_structure,
+                                                          save_label_map)
 from audio_transformers_tpu_torch.core.params import resolve_device
 from audio_transformers_tpu_torch.core.metrics import MetricLogger, StepTimer
 from audio_transformers_tpu_torch.models.whisper import emotion as emo
@@ -163,15 +170,23 @@ def evaluate(eval_step, params, batcher, device, *,
             "emotion_accuracy": sums["correct"] / max(sums["count"], 1.0)}
 
 
-def save_label_map(path: str, label_to_idx: dict) -> None:
-    """The reference-format label map: one "style: idx" line per label."""
-    with open(path, "w") as f:
-        for name, idx in label_to_idx.items():
-            f.write(f"{name}: {idx}\n")
-
-
 def _host_copy(params):
     return cp.map_tensors(params, lambda t: t.detach().cpu().clone())
+
+
+def _restore_into(params, opt, resume_ckpt: Checkpointer) -> tuple:
+    """Loads resume/'s latest step into the live `params` (copied in
+    place: `opt` holds references to these leaves) and `opt`; returns
+    (metadata, step)."""
+    tree, meta, step = resume_ckpt.restore()
+    check_structure(tree["params"], params,
+                    f"{resume_ckpt.directory} step {step}")
+    with torch.no_grad():
+        for (_, t), (_, src) in zip(cp.leaves_with_path(params),
+                                    cp.leaves_with_path(tree["params"])):
+            t.copy_(src)
+    opt.load_state_dict(tree["opt_state"])
+    return meta or {}, step
 
 
 def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
@@ -184,11 +199,15 @@ def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
     when no CUDA device is present) and evaluates after each one.
 
     `init_params` is a port parameter tree (e.g. `core.params.
-    from_jax_params` of a JAX tree); None initialises from train_cfg.seed.
-    With `output_dir`, metrics go to <output_dir>/metrics.jsonl and the
-    label map to style_to_id.txt. Returns {"params", "best_params" (a host
-    snapshot of the best-by-val-loss epoch), "optimizer", "history",
-    "best_val_loss"}."""
+    from_jax_params` of a JAX tree, or `models/whisper/load.py`'s); None
+    initialises from train_cfg.seed. With `output_dir`, metrics go to
+    <output_dir>/metrics.jsonl, the label map to style_to_id.txt, the
+    best epochs to checkpoints/ and the last epoch's full state to
+    resume/; when resume/ holds a step, training resumes from it at the
+    next epoch (a run that has nothing left to train returns the best
+    checkpoint's params). Returns {"params", "best_params" (a host
+    snapshot of the best-by-val-loss epoch), "optimizer", "history" (this
+    run's epochs), "best_val_loss"}."""
     device = resolve_device(device)
     total_steps = train_batcher.steps_per_epoch * train_cfg.num_epochs
     if init_params is None:
@@ -201,11 +220,17 @@ def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
                           decay_mask=frozen_leaf_decay_mask)
     train_step, eval_step = make_steps(cfg, mel_cfg, train_cfg, opt, device)
 
+    ckpt = resume_ckpt = None
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)
         if style_to_idx:
             save_label_map(os.path.join(output_dir, "style_to_id.txt"),
                            style_to_idx)
+        ckpt = Checkpointer(os.path.join(output_dir, "checkpoints"),
+                            max_to_keep=train_cfg.keep_checkpoints,
+                            best_mode="min")
+        resume_ckpt = Checkpointer(os.path.join(output_dir, "resume"),
+                                   max_to_keep=1)
     log = MetricLogger(
         log_dir=output_dir, wandb_project=wandb_project,
         config={"cfg": cfg.to_json(), "train": train_cfg.to_json()})
@@ -214,8 +239,17 @@ def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
     best_params = None
     history = []
     step = 0
+    start_epoch = 0
+    if resume_ckpt is not None and resume_ckpt.latest_step() is not None:
+        meta, step = _restore_into(params, opt, resume_ckpt)
+        start_epoch = meta.get("epoch", 0)
+        best_val_loss = meta.get("best_val_loss", float("inf"))
+        if ckpt.best_step() is not None:
+            best_params = ckpt.restore(step=ckpt.best_step())[0]["params"]
+        print(f"[train] resumed from epoch {start_epoch} (step {step})")
+
     timer = StepTimer()
-    for epoch in range(train_cfg.num_epochs):
+    for epoch in range(start_epoch, train_cfg.num_epochs):
         # metrics stay on the device until the epoch ends: one sync, not
         # one per step
         timer.reset()
@@ -251,9 +285,22 @@ def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
         if val["loss"] < best_val_loss:
             best_val_loss = val["loss"]
             best_params = _host_copy(params)
+            if ckpt is not None:
+                ckpt.save(step, {"params": best_params},
+                          metadata={"cfg": cfg.to_json(),
+                                    "mel_cfg": mel_cfg.to_json(),
+                                    "epoch": epoch + 1,
+                                    "val_loss": val["loss"],
+                                    "style_to_idx": style_to_idx},
+                          best_metric=val["loss"])
+        if resume_ckpt is not None:
+            resume_ckpt.save(step, {"params": params,
+                                    "opt_state": opt.state_dict()},
+                             metadata={"epoch": epoch + 1,
+                                       "best_val_loss": best_val_loss})
 
     log.finish()
-    if best_params is None:   # no epoch ran
+    if best_params is None:   # no epoch improved (e.g. none ran)
         best_params = _host_copy(params)
     return {"params": params, "best_params": best_params, "optimizer": opt,
             "history": history, "best_val_loss": best_val_loss}

@@ -57,7 +57,8 @@ each raising on failure:
      float32, kernels on the card against plain versions on the CPU;
   9. the training path: the train_whisper CLI on whisper-tiny (bfloat16,
      synthetic 30 s clips, batch 8, 10 train steps and one eval), with
-     every launch counter reset just before and read just after;
+     every launch counter reset just before and read just after; it
+     writes checkpoints/ and resume/, each save timed, kept for phase 21;
   10. a fixed batch overfit for 20 constant-lr steps: the loss falls;
   11. steady-state train-step time at batch 16, flash kernels against the
      plain attention, four turns each in alternating order;
@@ -98,7 +99,22 @@ each raising on failure:
      reset around each run: K1 (every call in int4 mode with int4), K2
      (in its timestamp mode) and K3 launched, no plain version on CUDA;
      the wall time, segments, re-decoded rows and launches logged;
-  19. the same evaluation with 4 beams and int4 cross K/V: K5 launched.
+  19. the same evaluation with 4 beams and int4 cross K/V: K5 launched;
+  20. model I/O, the HF directory: phase 5's seeded whisper-tiny exported
+     by the port (`export_hf_dir`; also a copy with pytorch_model.bin in
+     place of model.safetensors), each loaded on the card through
+     `cli.common.load_pipeline`: greedy `analyze` of the 12 s clip gives
+     phase 5's tokens and probabilities exactly, through K1, K2 and K3,
+     with no plain version on CUDA; then `cli.infer --num_beams 4` over
+     the directory (K5). Export, load and first-analyze wall times;
+  21. model I/O, checkpoints: phase 9's resume/ bundle (params and AdamW
+     moments) restored, `cli.infer` over its checkpoints/ on the card
+     (K1, K2, K3), `train_whisper --pretrained` from phase 20's directory
+     (K4a/b/c), and at the test config in float32 2 epochs straight
+     against 1 epoch, a preemption and a resume to 2: the parameters
+     bit-equal, else the largest difference within 2 * steps * lr (PERF.md
+     §6). Every load and save wall time is logged beside the card's name
+     and power limit.
 
 Tolerances (kernel vs plain version, on the card):
   K1 decode_cross_attention: 1e-5 abs in float32 (sum order only);
@@ -153,9 +169,11 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -979,27 +997,57 @@ def check_small_train_step(torch, port, init):
         f"(bound {2 * lr + 1e-6:.1e})")
 
 
-def check_train_cli(torch, _build):
-    """The training path at whisper-tiny width through the CLI."""
-    import tempfile
+class SaveTimer:
+    """Times every Checkpointer.save (synchronised before and after) while
+    in a `with`, as (directory name, step, seconds, tree bytes)."""
 
+    def __init__(self):
+        from audio_transformers_tpu_torch.core import checkpoint
+        self.cls, self.saves = checkpoint.Checkpointer, []
+        self.save = self.cls.save
+
+    def __enter__(self):
+        import torch
+        timer = self
+
+        def save(ck, step, tree, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timer.save(ck, step, tree, **kw)
+            seconds = time.perf_counter() - t0
+            timer.saves.append((os.path.basename(ck.directory), step,
+                                seconds, os.path.getsize(os.path.join(
+                                    ck.directory, str(step), "tree.pt"))))
+
+        self.cls.save = save
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.save = self.save
+        return False
+
+
+def check_train_cli(torch, _build, out_dir, smi):
+    """The training path at whisper-tiny width through the CLI, writing
+    its checkpoints/ and resume/ directories into `out_dir` (kept for
+    phase 21)."""
     from audio_transformers_tpu_torch.cli import train_whisper
-    with tempfile.TemporaryDirectory() as out_dir:
-        args = ["--dataset", "synthetic", "--model_size", "tiny",
-                "--compute_dtype", "bfloat16", "--batch_size", "8",
-                "--num_samples", "100", "--num_epochs", "1",
-                "--num_workers", "4", "--device", "cuda",
-                "--output_dir", out_dir]
-        torch.cuda.synchronize()
-        _build.reset_stats()
-        t0 = time.perf_counter()
+    args = ["--dataset", "synthetic", "--model_size", "tiny",
+            "--compute_dtype", "bfloat16", "--batch_size", "8",
+            "--num_samples", "100", "--num_epochs", "1",
+            "--num_workers", "4", "--device", "cuda",
+            "--output_dir", out_dir]
+    torch.cuda.synchronize()
+    _build.reset_stats()
+    t0 = time.perf_counter()
+    with SaveTimer() as saves:
         out = train_whisper.main(args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        stats = {name: (s.launches, s.plain_cuda_calls)
-                 for name, s in _build.STATS.items()}
-        require(os.path.exists(os.path.join(out_dir, "metrics.jsonl")),
-                "metrics.jsonl written")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = {name: (s.launches, s.plain_cuda_calls)
+             for name, s in _build.STATS.items()}
+    require(os.path.exists(os.path.join(out_dir, "metrics.jsonl")),
+            "metrics.jsonl written")
     log(f"train_whisper (whisper-tiny, bf16, 30 s clips, batch 8, "
         f"{out['optimizer'].count} steps + eval): {wall:.3f} s; "
         f"launches / plain-on-CUDA calls: {stats}")
@@ -1014,6 +1062,12 @@ def check_train_cli(torch, _build):
             if "loss" in key:
                 require(math.isfinite(val), f"{key} = {val}")
     log(f"train_whisper history: {json.dumps(out['history'])}")
+    require(sorted(d for d, *_ in saves.saves) == ["checkpoints", "resume"],
+            f"one save each to checkpoints/ and resume/: {saves.saves}")
+    for directory, step, seconds, size in saves.saves:
+        log(f"model I/O ({smi}): Checkpointer.save of {directory}/{step} "
+            f"(whisper-tiny{' + AdamW moments' if directory == 'resume' else ''}"
+            f", {size / 1e6:.1f} MB): {seconds:.3f} s")
     return {name: stats[name][0] for name in TRAINING}
 
 
@@ -1490,6 +1544,261 @@ def check_eval_full(torch, _build, params, cfg, mode, threshold, tokenizer,
             "launches": {k: v[0] for k, v in stats.items() if v[0]}}
 
 
+# ---------------------------------------------------------------------------
+# phases 20-21: model I/O
+# ---------------------------------------------------------------------------
+
+
+def _tokens(decode):
+    """A Spy on greedy decoding that keeps each call's tokens."""
+    return Spy(decode, "generate_with_fallback",
+               keep=lambda a, k, out: out["tokens"].cpu())
+
+
+def _launches():
+    from audio_transformers_tpu_torch.ops import _build
+    return {name: (s.launches, s.plain_cuda_calls)
+            for name, s in _build.STATS.items()}
+
+
+def _require_launched(stats, names, what):
+    for name, (_, plain) in stats.items():
+        require(plain == 0, f"{what}: {name}'s plain version ran on CUDA")
+    for name in names:
+        require(stats[name][0] > 0, f"{what}: {name} was not launched")
+
+
+def check_hf_path(torch, _build, decode, params, cfg, clip, want, smi):
+    """Phase 20: seeded whisper-tiny exported by the port as an HF
+    directory (model.safetensors, and a copy with pytorch_model.bin), each
+    loaded through `load_pipeline` on the card: greedy `analyze` of the
+    12 s clip gives phase 5's tokens and probabilities, through K1, K2 and
+    K3; then `cli.infer --num_beams 4` over the directory launches K5.
+    `want` is (phase 5's tokens per decode call, its result). Returns the
+    temporary root holding the directory and the times it measured."""
+    import shutil
+    import tempfile
+
+    from audio_transformers_tpu_torch.cli import infer as cli_infer
+    from audio_transformers_tpu_torch.cli.common import load_pipeline
+    from audio_transformers_tpu_torch.utils.hub import (export_hf_dir,
+                                                        to_torch_state_dict)
+    want_tokens, want_out = want
+    root = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    hf, binned = os.path.join(root, "hf"), os.path.join(root, "bin")
+    times = {}
+    t0 = time.perf_counter()
+    export_hf_dir(params, cfg, hf)
+    times["export_hf_dir_s"] = time.perf_counter() - t0
+    os.makedirs(binned)
+    for name in ("config.json", "generation_config.json"):
+        shutil.copy(os.path.join(hf, name), binned)
+    torch.save(to_torch_state_dict(params, cfg),
+               os.path.join(binned, "pytorch_model.bin"))
+    size = os.path.getsize(os.path.join(hf, "model.safetensors"))
+    log(f"model I/O ({smi}): export_hf_dir of whisper-tiny "
+        f"(model.safetensors {size / 1e6:.1f} MB): "
+        f"{times['export_hf_dir_s']:.3f} s")
+    for weights, path in (("model.safetensors", hf),
+                          ("pytorch_model.bin", binned)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe = load_pipeline(path, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        require(pipe.compute_dtype == torch.bfloat16
+                and pipe.cfg == cfg, f"{weights}: the loaded pipeline")
+        _build.reset_stats()
+        with _tokens(decode) as spy:
+            t0 = time.perf_counter()
+            out = pipe.analyze(clip, 16000)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        stats = _launches()
+        what = f"analyze of the HF directory ({weights})"
+        check_result(out, 3, cfg.num_emotion_classes)
+        _require_launched(stats, SERVING, what)
+        require(len(spy.kept) == len(want_tokens)
+                and all(torch.equal(a, b)
+                        for a, b in zip(spy.kept, want_tokens)),
+                f"{what}: tokens differ from phase 5's pipeline")
+        prob_err = max(abs(g["emotion_probs"][k] - w["emotion_probs"][k])
+                       for g, w in zip(out["segments"], want_out["segments"])
+                       for k in w["emotion_probs"])
+        require(prob_err == 0.0, f"{what}: probabilities differ from phase "
+                                 f"5's by {prob_err}")
+        key = "safetensors" if weights == "model.safetensors" else "bin"
+        times[f"from_hf_dir_{key}_s"] = load_s
+        times[f"first_analyze_{key}_s"] = first_s
+        log(f"model I/O ({smi}): load_pipeline of the HF directory "
+            f"({weights}, whisper-tiny, to bf16 on the card): {load_s:.3f} "
+            f"s; first analyze of the 12 s clip {first_s:.3f} s; tokens and "
+            f"probabilities equal phase 5's; launches / plain-on-CUDA "
+            f"calls: {stats}")
+        del pipe
+        torch.cuda.empty_cache()
+    _build.reset_stats()
+    t0 = time.perf_counter()
+    res = cli_infer.main(["--model_path", hf, "--num_beams", str(N_BEAMS),
+                          "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = _launches()
+    what = f"cli.infer --num_beams {N_BEAMS} over the HF directory"
+    check_result(res, 3, cfg.num_emotion_classes)
+    _require_launched(stats, BEAM, what)
+    log(f"{what}: {wall:.3f} s (load and one analyze); launches / "
+        f"plain-on-CUDA calls: {stats}")
+    times["cli_infer_beams_s"] = wall
+    torch.cuda.empty_cache()
+    return root, times
+
+
+class Preempted(Exception):
+    pass
+
+
+class CutBatcher:
+    """A batcher whose epoch `at` never starts: a preempted job."""
+
+    def __init__(self, inner, at):
+        self.inner, self.at = inner, at
+        self.steps_per_epoch = inner.steps_per_epoch
+
+    def train_epochs(self, *, epoch):
+        if epoch == self.at:
+            raise Preempted(epoch)
+        return self.inner.train_epochs(epoch=epoch)
+
+
+def check_resume_exact(torch, port):
+    """The test config in float32 on the card: 2 epochs straight against
+    1 epoch, a preemption and a resume to 2 (flash K4 in float32, K3).
+    cuDNN runs its deterministic algorithms here, so that run-to-run noise
+    of the convolutions' backward does not hide the resume's own. Returns
+    the largest parameter difference, held to 2 * steps * lr (PERF.md)."""
+    import tempfile
+
+    from audio_transformers_tpu_torch.core import params as cp
+    from audio_transformers_tpu_torch.data.synthetic import SyntheticSeq2Seq
+    from audio_transformers_tpu_torch.train import whisper_emotion as tw
+    cfg = port.EmotionWhisperConfig(whisper=port.WhisperConfig.test(),
+                                    num_emotion_classes=4)
+    w, lr = cfg.whisper, 1e-3
+    tcfg = port.TrainConfig(batch_size=8, num_epochs=2,
+                            compute_dtype="float32",
+                            optimizer=port.OptimizerConfig(
+                                name="adamw", learning_rate=lr,
+                                weight_decay=0.01,
+                                schedule="linear_warmup_decay",
+                                warmup_fraction=0.25))
+    mel_cfg = port.MelConfig.whisper()
+
+    def data(n, seed):
+        return SyntheticSeq2Seq(
+            num_samples=n, num_classes=4, vocab_size=w.vocab_size,
+            max_label_len=8, duration=2 * w.max_source_positions * 160
+            / 16000, seed=seed, bos_id=w.decoder_start_token_id,
+            eos_id=w.eos_token_id, pad_id=w.pad_token_id).batcher(8)
+
+    def train(out_dir, batcher=None):
+        return tw.train_whisper_emotion(
+            cfg, mel_cfg, tcfg, batcher or data(16, 1), data(12, 2),
+            device="cuda", output_dir=out_dir)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            straight = train(os.path.join(tmp, "straight"))
+            try:
+                train(os.path.join(tmp, "cut"), CutBatcher(data(16, 1), 1))
+                require(False, "the preempted run was not cut")
+            except Preempted:
+                pass
+            resumed = train(os.path.join(tmp, "cut"))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    require([r["epoch"] for r in resumed["history"]] == [2],
+            "the resumed run trains epoch 2 only")
+    steps = straight["optimizer"].count
+    require(resumed["optimizer"].count == steps, "the schedule's position")
+    diff = max((a.detach() - b.detach()).abs().max().item()
+               for (_, a), (_, b) in zip(
+                   cp.leaves_with_path(straight["params"]),
+                   cp.leaves_with_path(resumed["params"])))
+    bound = 2 * steps * lr
+    log(f"resume (test config, float32, on the card, {steps} steps): "
+        f"2 epochs straight against 1 + a preemption + resume 1: params "
+        f"{'bit-equal' if diff == 0.0 else 'not bit-equal'}, max |diff| "
+        f"{diff:.3e} (bound 2 * steps * lr = {bound:.1e})")
+    require(diff <= bound, f"resumed params differ by {diff}")
+    return diff
+
+
+def check_checkpoint_path(torch, _build, port, run_dir, hf_dir, smi):
+    """Phase 21: phase 9's resume/ bundle restored (timed), cli.infer over
+    its checkpoints/ on the card, train_whisper --pretrained from phase
+    20's HF directory through K4a/b/c, and the resume's exactness."""
+    import tempfile
+
+    from audio_transformers_tpu_torch.cli import infer as cli_infer
+    from audio_transformers_tpu_torch.cli import train_whisper
+    from audio_transformers_tpu_torch.core.checkpoint import Checkpointer
+    times = {}
+    resume = Checkpointer(os.path.join(run_dir, "resume"))
+    step = resume.latest_step()
+    require(step is not None, "phase 9 wrote a resume step")
+    size = os.path.getsize(os.path.join(resume.directory, str(step),
+                                        "tree.pt"))
+    t0 = time.perf_counter()
+    tree, meta, _ = resume.restore()
+    times["restore_resume_s"] = time.perf_counter() - t0
+    require(meta["epoch"] == 1 and tree["opt_state"]["count"] == step,
+            f"resume/ metadata {meta}")
+    del tree
+    log(f"model I/O ({smi}): Checkpointer.restore of resume/{step} "
+        f"(whisper-tiny + AdamW moments, {size / 1e6:.1f} MB, to the "
+        f"CPU): {times['restore_resume_s']:.3f} s")
+
+    _build.reset_stats()
+    t0 = time.perf_counter()
+    res = cli_infer.main(["--model_path", os.path.join(run_dir,
+                                                       "checkpoints"),
+                          "--device", "cuda"])
+    torch.cuda.synchronize()
+    times["cli_infer_checkpoint_s"] = time.perf_counter() - t0
+    stats = _launches()
+    what = "cli.infer over phase 9's checkpoints/"
+    check_result(res, 3, 9)
+    _require_launched(stats, SERVING, what)
+    log(f"{what}: {times['cli_infer_checkpoint_s']:.3f} s (load and one "
+        f"analyze); launches / plain-on-CUDA calls: {stats}")
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        _build.reset_stats()
+        t0 = time.perf_counter()
+        out = train_whisper.main([
+            "--dataset", "synthetic", "--model_size", "tiny",
+            "--compute_dtype", "bfloat16", "--batch_size", "8",
+            "--num_samples", "40", "--num_epochs", "1", "--num_workers",
+            "4", "--device", "cuda", "--pretrained", hf_dir,
+            "--output_dir", out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    stats = _launches()
+    what = "train_whisper --pretrained (phase 20's HF directory)"
+    _require_launched(stats, TRAINING, what)
+    require(out["optimizer"].count > 0, f"{what}: no step")
+    require(all(math.isfinite(v) for row in out["history"]
+                for k, v in row.items() if "loss" in k),
+            f"{what}: finite losses")
+    log(f"{what}: {out['optimizer'].count} steps + eval in {wall:.3f} s; "
+        f"launches / plain-on-CUDA calls: {stats}")
+    times["resume_max_abs_diff"] = check_resume_exact(torch, port)
+    return times
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1574,9 +1883,11 @@ def main() -> int:
     torch.cuda.synchronize()
     _build.reset_stats()
     t0 = time.perf_counter()
-    out = pipe.analyze(clip, 16000)
+    with _tokens(decode) as phase5_tokens:   # held against phase 20
+        out = pipe.analyze(clip, 16000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    phase5 = (phase5_tokens.kept, out)
     stats = {name: (s.launches, s.plain_cuda_calls)
              for name, s in _build.STATS.items()}
     log(f"analyze (whisper-tiny, bf16, 12 s clip, first call): {wall:.3f} s; "
@@ -1607,8 +1918,10 @@ def main() -> int:
     # 8. one train step at the test config: card vs CPU
     check_small_train_step(torch, port_core, init)
 
-    # 9. the training path at whisper-tiny width, through the CLI
-    train_launches = check_train_cli(torch, _build)
+    # 9. the training path at whisper-tiny width, through the CLI; its
+    # checkpoint directories serve phase 21
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    train_launches = check_train_cli(torch, _build, run_dir, smi[0])
 
     # 10-11. overfit on one batch; steady-state step time, flash vs plain
     params = init(EmotionWhisperConfig(num_emotion_classes=9),
@@ -1658,6 +1971,22 @@ def main() -> int:
     # 19. timestamped 4-beam segment evaluation with int4 cross K/V
     evals["beams"] = check_eval_full(torch, _build, params, cfg, "int4", 2.4,
                                      ByteTokenizer(), beams=N_BEAMS)
+
+    # 20. the HF directory: export, load on the card, analyze, 4 beams
+    io_root, io_times = check_hf_path(torch, _build, decode, params, cfg,
+                                      clip, phase5, smi[0])
+    del params
+    torch.cuda.empty_cache()
+
+    # 21. checkpoints: restore, infer, --pretrained, resume exactness
+    try:
+        io_times.update(check_checkpoint_path(
+            torch, _build, port_core, run_dir, os.path.join(io_root, "hf"),
+            smi[0]))
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+        shutil.rmtree(io_root, ignore_errors=True)
+    log(f"model I/O times ({smi[0]}): {json.dumps(io_times)}")
 
     kernels = []
     for name in SERVING:

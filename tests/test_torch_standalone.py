@@ -1,5 +1,7 @@
-"""The port stands alone: it imports nothing of JAX, of the JAX package or
-of scikit-learn (the card's machine has none),
+"""The port stands alone: it imports nothing of JAX, of the JAX package,
+of scikit-learn, safetensors, transformers, huggingface_hub or orbax (the
+card's machine has none of them), it loads, saves and serves models
+without them,
 its copies of the package's JAX-free modules (configs, audio utilities,
 the synthetic Expresso data, the micro-batcher) behave as the originals,
 and its entry points run on the card unless the caller asks for the CPU.
@@ -33,9 +35,12 @@ from audio_transformers_tpu_torch.utils import audio as paudio
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_BLOCK = """
+_BLOCKED = ("jax", "audio_transformers_tpu", "sklearn", "safetensors",
+            "transformers", "huggingface_hub", "orbax")
+
+_BLOCK = f"""
 import sys
-for blocked in ("jax", "audio_transformers_tpu", "sklearn"):
+for blocked in {_BLOCKED!r}:
     sys.modules[blocked] = None
 """
 
@@ -49,11 +54,10 @@ for name in names:
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")
 runpy.run_path("tests/test_torch_cuda.py", run_name="test_torch_cuda")
 leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
-                and (m.split(".")[0] in ("jax", "audio_transformers_tpu",
-                                         "sklearn")))
+                and m.split(".")[0] in blocked_names)
 assert not leaked, leaked
 print(len(names))
-"""
+""".replace("blocked_names", repr(_BLOCKED))
 
 # segment and sequence evaluation at the test config on the CPU, with
 # jax, the JAX package and sklearn blocked: the metrics and the files
@@ -88,6 +92,55 @@ print(" ".join(sorted(os.listdir(out))))
 """
 
 
+# model I/O on the CPU with the same packages blocked: an HF directory
+# written and loaded back, a checkpoint saved and restored, and the infer
+# CLI over both
+_MODEL_IO = _BLOCK + """
+import os, tempfile
+import torch
+from audio_transformers_tpu_torch.cli import infer
+from audio_transformers_tpu_torch.cli.common import load_pipeline
+from audio_transformers_tpu_torch.core import (EmotionWhisperConfig,
+                                               WhisperConfig)
+from audio_transformers_tpu_torch.core.checkpoint import Checkpointer
+from audio_transformers_tpu_torch.core.params import init, leaves_with_path
+from audio_transformers_tpu_torch.data.tokenizer import ByteTokenizer
+from audio_transformers_tpu_torch.utils.audio import synth_clip
+from audio_transformers_tpu_torch.utils.hub import export_hf_dir
+# the test config's widths with whisper's vocab and special ids, which
+# config.json carries (or implies) exactly
+cfg = EmotionWhisperConfig(whisper=WhisperConfig(
+    d_model=64, encoder_layers=2, decoder_layers=2, num_heads=2,
+    ffn_dim=128, max_source_positions=64, max_target_positions=32),
+    num_emotion_classes=3)
+params = init(cfg, torch.Generator().manual_seed(0))
+root = tempfile.mkdtemp()
+hf = export_hf_dir(params, cfg, os.path.join(root, "hf"),
+                   style_to_idx={"a": 0, "b": 1, "c": 2})
+pipe = load_pipeline(hf, tokenizer=ByteTokenizer(), device="cpu")
+for (p, a), (_, b) in zip(leaves_with_path(params),
+                          leaves_with_path(pipe.params)):
+    assert torch.equal(a, b), p
+out = pipe.analyze(synth_clip(1.5, 16000), 16000, segment_duration=1.0,
+                   max_new_tokens=4)
+assert len(out["segments"]) == 2
+assert set(out["segments"][0]["emotion_probs"]) == {"a", "b", "c"}
+ck = Checkpointer(os.path.join(root, "ck"))
+ck.save(3, {"params": params}, metadata={"cfg": cfg.to_json()},
+        best_metric=0.5)
+tree, meta, step = ck.restore(like={"params": params})
+assert step == 3 and ck.best_step() == 3
+for (p, a), (_, b) in zip(leaves_with_path(params),
+                          leaves_with_path(tree["params"])):
+    assert torch.equal(a, b), p
+for path in (hf, ck.directory):
+    res = infer.main(["--model_path", path, "--device", "cpu",
+                      "--segment_duration", "6.0"])
+    assert len(res["segments"]) == 2
+print("ok")
+"""
+
+
 def test_port_imports_nothing_of_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
@@ -101,6 +154,13 @@ def test_evaluation_stands_alone():
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.split() == ["metrics.txt", "predictions.txt",
                                   "segment_evaluation.txt"]
+
+
+def test_model_io_stands_alone():
+    out = subprocess.run([sys.executable, "-c", _MODEL_IO], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-1] == "ok"
 
 
 # --------------------------------------------------------------------------

@@ -350,12 +350,25 @@ def test_trainer_refuses_what_is_not_ported():
             tw.resolve_device("cuda")
 
 
-def test_cli_refuses_pretrained_and_hub():
+def test_cli_refuses_pretrained_and_hub(tmp_path, monkeypatch, capsys):
+    """--pretrained refuses a directory without weights (a sharded index
+    is not read); --hf_repo_id without HF_ACCESS exports the run but
+    refuses the upload."""
     from audio_transformers_tpu_torch.cli import train_whisper
-    with pytest.raises(NotImplementedError):
-        train_whisper.main(["--pretrained", "x", "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        train_whisper.main(["--hf_repo_id", "x", "--device", "cpu"])
+    (tmp_path / "sharded").mkdir()
+    (tmp_path / "sharded" / "model.safetensors.index.json").write_text("{}")
+    small = ["--device", "cpu", "--model_size", "test", "--compute_dtype",
+             "float32", "--num_epochs", "1", "--batch_size", "8",
+             "--num_samples", "16", "--num_workers", "0"]
+    with pytest.raises(FileNotFoundError, match="sharded"):
+        train_whisper.main(small + ["--pretrained",
+                                    str(tmp_path / "sharded")])
+    monkeypatch.delenv("HF_ACCESS", raising=False)
+    train_whisper.main(small + ["--hf_repo_id", "user/repo",
+                                "--output_dir", str(tmp_path / "run")])
+    assert "HF_ACCESS not set; skipping upload" in capsys.readouterr().out
+    assert os.path.exists(tmp_path / "run" / "hf_export" /
+                          "model.safetensors")
 
 
 def test_training_modules_import_without_jax():
