@@ -1,10 +1,9 @@
 """Shared CLI plumbing: dataset construction and model loading from flags
-(the port's copy of the reference package's `cli/common.py`, without the
-classifier's batchers)."""
+(the port's copy of the reference package's `cli/common.py`)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 from audio_transformers_tpu_torch.data.tokenizer import (ByteTokenizer,
                                                          load_tokenizer)
@@ -36,6 +35,32 @@ def build_expresso_splits(args, tokenizer, *, duration: float = 3.0,
                            styles=selected, duration=duration,
                            vocab_size=vocab_size, seed=args.seed)
     return ds.splits(seed=args.seed)
+
+
+def build_classifier_batchers(args) -> Tuple:
+    """(train, val) batchers of the UrbanSound classifier from --dataset
+    flags: urbansound8k (HF datasets), local (--data_dir, with an
+    optional --waveform_cache) or synthetic."""
+    from audio_transformers_tpu_torch.data.synthetic import \
+        SyntheticClassification
+    from audio_transformers_tpu_torch.data.urbansound import (
+        UrbanSoundHFSource, UrbanSoundLocalSource, get_batchers)
+
+    if args.dataset == "urbansound8k":
+        src = UrbanSoundHFSource(limit_samples=args.limit_samples)
+    elif args.dataset == "local":
+        src = UrbanSoundLocalSource(args.data_dir,
+                                    limit_samples=args.limit_samples)
+        cache_dir = getattr(args, "waveform_cache", None)
+        if cache_dir:
+            # epochs >= 2 then serve mmap reads instead of re-decoding
+            src = src.cached(cache_dir)
+    else:
+        src = SyntheticClassification(
+            num_samples=args.limit_samples or 64, seed=args.seed)
+    return get_batchers(src, batch_size=args.batch_size,
+                        val_split=args.val_split, seed=args.seed,
+                        num_workers=getattr(args, "num_workers", 0))
 
 
 def get_tokenizer(name_or_path: Optional[str]):

@@ -12,8 +12,8 @@ Flag-compatible with the reference package's `cli/train_whisper.py`, plus
 whisper weights, and the emotion head when its class count fits the
 dataset); --hf_repo_id exports the best epoch as an HF directory to
 <output_dir>/hf_export and uploads it (with HF_ACCESS set). Rerunning
-with the same --output_dir resumes from its resume/ directory. Not
-ported yet, and raising NotImplementedError: --spec_augment.
+with the same --output_dir resumes from its resume/ directory.
+--spec_augment masks the mel features in each train step.
 """
 
 from __future__ import annotations

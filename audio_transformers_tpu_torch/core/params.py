@@ -11,9 +11,12 @@ tensors with the same keys as the reference package's pytrees
   encoder `pos` parameter, decoder positions) keeps its shape.
 
 `from_jax_params` and `to_jax_params` convert between the two; a round
-trip returns the JAX tree bit for bit. `leaves_with_path`,
-`trainable_leaves` and `set_trainable` serve the trainer: every leaf is
-trained except the frozen encoder positional table (`FROZEN`). `init` builds a fresh tree from an
+trip returns the JAX tree bit for bit. The UrbanSound classifier's
+(params, state) pair (`init_urbansound`) converts the same way, tree by
+tree: its state's BatchNorm statistics and `pos` table keep their
+shapes. `leaves_with_path`, `trainable_leaves` and `set_trainable` serve
+the trainers: every leaf is trained except the frozen encoder positional
+table (`FROZEN`). `init` and `init_urbansound` build fresh trees from an
 explicit `torch.Generator` with the reference's distributions, for
 machines where no JAX parameters can be made.
 """
@@ -27,8 +30,10 @@ import numpy as np
 import torch
 
 from audio_transformers_tpu_torch.core.config import (EmotionWhisperConfig,
+                                                      UrbanSoundConfig,
                                                       WhisperConfig)
-from audio_transformers_tpu_torch.ops.nn import sinusoidal_embeddings
+from audio_transformers_tpu_torch.ops.nn import (sinusoidal_embeddings,
+                                                 sinusoidal_embeddings_ref)
 
 
 def _leaf_to_torch(key: str, x) -> torch.Tensor:
@@ -162,9 +167,9 @@ def layer_norm_init(dim: int) -> dict:
     return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
 
 
-def _mha_init(g: torch.Generator, dim: int) -> dict:
+def _mha_init(g: torch.Generator, dim: int, *, k_bias: bool = False) -> dict:
     return {"q": linear_init(g, dim, dim),
-            "k": linear_init(g, dim, dim, use_bias=False),
+            "k": linear_init(g, dim, dim, use_bias=k_bias),
             "v": linear_init(g, dim, dim),
             "o": linear_init(g, dim, dim)}
 
@@ -209,3 +214,48 @@ def init(cfg: EmotionWhisperConfig, generator: torch.Generator) -> dict:
     return {"whisper": init_whisper(cfg.whisper, generator),
             "emotion_head": linear_init(generator, cfg.whisper.d_model,
                                         cfg.num_emotion_classes)}
+
+
+def _norm_init(cfg: UrbanSoundConfig, dim: int) -> tuple:
+    """(params, state) of one norm: BatchNorm's running mean 0 and var 1
+    in the state, or GroupNorm's empty state."""
+    params = layer_norm_init(dim)
+    if cfg.norm_type == "group":
+        return params, {}
+    return params, {"mean": torch.zeros(dim), "var": torch.ones(dim)}
+
+
+def init_urbansound(cfg: UrbanSoundConfig, generator: torch.Generator
+                    ) -> tuple:
+    """Fresh UrbanSound classifier (float32, on the CPU) from `generator`:
+    (params, state), the reference's trees (`audio_transformers_tpu/models/
+    urbansound/model.py:init`). `state` holds what no optimizer touches:
+    the norms' running statistics and the sinusoidal `pos` table."""
+    if cfg.norm_type not in ("batch", "group"):
+        raise ValueError(f"unknown norm_type {cfg.norm_type!r}")
+    g, d = generator, cfg.encoder_dim
+    params: dict = {
+        "conv1": conv1d_init(g, cfg.n_mels, cfg.conv_dim, cfg.conv_kernel),
+        "conv2": conv1d_init(g, cfg.conv_dim, cfg.conv_dim, cfg.conv_kernel)}
+    state: dict = {}
+    params["bn1"], state["bn1"] = _norm_init(cfg, cfg.conv_dim)
+    params["bn2"], state["bn2"] = _norm_init(cfg, cfg.conv_dim)
+    if cfg.conv_dim != d:
+        params["proj"] = linear_init(g, cfg.conv_dim, d)
+    params["blocks"] = [
+        {"attn_ln": layer_norm_init(d), "attn": _mha_init(g, d, k_bias=True),
+         "mlp_ln": layer_norm_init(d), "fc1": linear_init(g, d, 4 * d),
+         "fc2": linear_init(g, 4 * d, d)}
+        for _ in range(cfg.num_encoder_blocks)]
+    params["ln_post"] = layer_norm_init(d)
+    params["cnn"], state["cnn"] = [], []
+    in_dim = d
+    for dim in cfg.cnn_dims:
+        bn_p, bn_s = _norm_init(cfg, dim)
+        params["cnn"].append({"conv": conv1d_init(g, in_dim, dim, 3),
+                              "bn": bn_p})
+        state["cnn"].append(bn_s)
+        in_dim = dim
+    params["cls"] = linear_init(g, cfg.cnn_dims[-1], cfg.num_classes)
+    state["pos"] = sinusoidal_embeddings_ref(cfg.max_positions, d)
+    return params, state

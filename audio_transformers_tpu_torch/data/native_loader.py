@@ -7,8 +7,10 @@ a multi-threaded prefetch pool delivering fixed-length clips in submission
 order. Falls back to the pure-numpy path (utils/audio.py) when the shared
 library hasn't been built (`make -C native/audiodec`).
 
-The port's copy of the reference package's bindings, the decode entry
-points only (what `utils/audio.decode_audio_bytes` reaches).
+The port's copy of the reference package's bindings: the decoders (what
+`utils/audio.decode_audio_bytes` reaches), `resample`, and the prefetch
+pool with its ordered stream `iter_clips` (what `data/urbansound.py`'s
+local source reaches).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -136,3 +138,81 @@ def decode_audio(data: bytes, max_samples: Optional[int] = None
                  ) -> Tuple[np.ndarray, int]:
     """Container-sniffing decode (RIFF wav or fLaC) -> mono float32."""
     return _decode("adc_decode_audio", data, max_samples)
+
+
+def resample(audio: np.ndarray, in_rate: int, out_rate: int) -> np.ndarray:
+    lib = _load()
+    audio = np.ascontiguousarray(audio, np.float32)
+    cap = lib.adc_resample_out_len(len(audio), in_rate, out_rate)
+    out = np.empty(int(cap), np.float32)
+    n = lib.adc_resample(_fptr(audio), len(audio), in_rate, out_rate,
+                         _fptr(out), cap)
+    if n < 0:
+        raise ValueError("adc_resample failed")
+    return out[:n]
+
+
+class PrefetchPool:
+    """Ordered multi-threaded wav-file prefetch: submit paths, pop
+    fixed-length preprocessed clips."""
+
+    def __init__(self, *, num_threads: int = 4, target_rate: int,
+                 target_len: int, normalize: bool = True,
+                 capacity: int = 64):
+        self._lib = _load()
+        self.target_len = target_len
+        self._pool = self._lib.adc_pool_create(
+            num_threads, target_rate, target_len, int(normalize), capacity)
+        if not self._pool:
+            raise OSError("adc_pool_create failed")
+
+    def _handle(self):
+        # after close() the pool pointer is NULL; passing it through
+        # ctypes would segfault the interpreter instead of raising
+        if not self._pool:
+            raise ValueError("pool is closed")
+        return self._pool
+
+    def submit(self, path: str, tag: int = 0) -> bool:
+        return self._lib.adc_pool_submit(
+            self._handle(), path.encode(), tag) == 0
+
+    def pop(self) -> Tuple[np.ndarray, int, bool]:
+        out = np.empty(self.target_len, np.float32)
+        tag = ctypes.c_int64(0)
+        rc = self._lib.adc_pool_pop(self._handle(), _fptr(out),
+                                    ctypes.byref(tag))
+        if rc == -2:
+            raise IndexError("pool empty")
+        return out, int(tag.value), rc == 0
+
+    def pending(self) -> int:
+        return self._lib.adc_pool_pending(self._handle())
+
+    def close(self):
+        if self._pool:
+            self._lib.adc_pool_destroy(self._pool)
+            self._pool = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def iter_clips(paths: Sequence[str], *, target_rate: int, target_len: int,
+               num_threads: int = 4, normalize: bool = True
+               ) -> Iterator[Tuple[int, np.ndarray, bool]]:
+    """Stream (index, clip, ok) over wav files with prefetch overlap."""
+    with PrefetchPool(num_threads=num_threads, target_rate=target_rate,
+                      target_len=target_len, normalize=normalize) as pool:
+        submitted = 0
+        popped = 0
+        n = len(paths)
+        while popped < n:
+            while submitted < n and pool.submit(paths[submitted], submitted):
+                submitted += 1
+            clip, tag, ok = pool.pop()
+            popped += 1
+            yield tag, clip, ok

@@ -18,26 +18,33 @@ Bound on the H100: memory (the waveform read once, the features written
 once); the function needs about 6 kFLOP per frame, far below the card's
 ridge line.
 
-Both `precision` names of the reference ("highest" and "high") compute in
-full float32 FMA here; the float32 FFT's rounding grows as log N, below
-the dense sum's. Whisper's cross-frame floor, (x+4)/4 and the frame drop
-run as plain PyTorch after the kernel, as in the TPU version.
+Both `precision` names of the reference ("highest" and "high") compute
+in full float32 FMA here; the float32 FFT's rounding grows as log N,
+below the dense sum's. Pairing two frames makes a bin's rounding scale
+with the pair's energy: a silent frame beside a loud one (the zero
+padding after a short clip's end) gets an absolute error that `log(mel +
+1e-9)` turns into a relative one. `pair_error_bound` states how far that
+can go. Whisper's cross-frame floor, (x+4)/4 and the frame drop run as
+plain PyTorch after the kernel, as in the TPU version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from audio_transformers_tpu_torch.core.config import MelConfig
 from audio_transformers_tpu_torch.ops import _build
 from audio_transformers_tpu_torch.ops.mel import (hann_window,
                                                   log_mel_torch,
                                                   mel_filter_bank,
+                                                  prepare_waveform,
                                                   whisper_floor)
 
 # n_fft -> (R1, R2), the two passes of the FFT, for whisper's and
@@ -49,6 +56,12 @@ MAX_FRAMES = 16           # frames per block at most
 # 48 KB the launcher opts in (cudaFuncSetAttribute)
 _SMEM_LIMIT = 74 * 1024
 _LOG_MODES = {"none": 0, "log_eps": 1, "whisper": 2}
+# a bin's rounding error in the kernel's float32 FFT of a frame pair, in
+# units of u * log2(n_fft) * ||pair||_2 (u = 2^-24): the numpy emulation
+# of the kernel's two passes (tests/test_torch_kernels.py) reaches 0.66;
+# 4 leaves a factor of 6
+FFT_ERR = 4.0
+LOG_EPS = 1e-9
 # wav, win, roots (host), ptw, fbw, band, out; batch, n, t_total, n_fft,
 # hop, pad, n_mels, fpb, off2, smem, use_sqrt, log_mode; stream
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
@@ -168,6 +181,47 @@ def _launch(wav: torch.Tensor, cfg: MelConfig, t_full: int,
     _build.check(rc, "log_mel")
     _build.STATS["log_mel"].launches += 1
     return out
+
+
+def pair_error_bound(waveform: torch.Tensor, cfg: MelConfig,
+                     mel_power: torch.Tensor) -> torch.Tensor:
+    """(B, T, n_mels) float64: how far the kernel's log_eps features,
+    log(mel + 1e-9), may lie from exact ones on these clips, beyond the
+    float32 rounding of the filterbank sum and the log.
+
+    `mel_power` is the exact (or plain float32) mel power of the same
+    clips (`mel.log_mel_torch` with log_mode "none"). The kernel FFTs
+    frames 2p and 2p + 1 (windowed: a, b) as z = a + ib and takes A_k =
+    (Z_k + conj Z_(N-k)) / 2, so a bin's error is at most e = FFT_ERR * u
+    * log2(N) * ||z||_2 with ||z||^2 = ||a||^2 + ||b||^2: the pair's
+    energy, not the frame's. The power |A_k|^2 then errs by at most
+    2 |A_k| e + e^2, and band m (weights 0 <= f <= 1, W_m their sum) by
+    at most d = 2 e sqrt(W_m mel_m) + e^2 W_m (Cauchy-Schwarz, f^2 <= f).
+    With x = mel_m + 1e-9 and the kernel's mel never below 0, the log
+    moves by at most max(log1p(d / x), -log(max(1 - d / x, 1e-9 / x))).
+    A silent frame whose partner is loud has mel_m = 0 and takes
+    log1p(e^2 W_m / 1e-9), about 0.3 for a partner of unit-variance
+    noise: the loud frame's relative error made absolute."""
+    if cfg.log_mode != "log_eps":
+        raise ValueError("pair_error_bound covers log_mode 'log_eps'")
+    n = cfg.n_fft
+    win = torch.from_numpy(hann_window(n)).to(waveform.device,
+                                              torch.float64)
+    frames = prepare_waveform(waveform, cfg).double().unfold(
+        1, n, cfg.hop_length) * win
+    energy = frames.square().sum(-1)                       # (B, T)
+    t = energy.shape[1]
+    energy = F.pad(energy, (0, t % 2))
+    pair = energy.view(energy.shape[0], -1, 2).sum(-1) \
+        .repeat_interleave(2, dim=1)[:, :t]
+    e = (FFT_ERR * 2.0 ** -24 * math.log2(n) * pair.sqrt())[..., None]
+    w = torch.from_numpy(mel_filter_bank(cfg)).to(
+        waveform.device, torch.float64).sum(0)
+    mel = mel_power.double().clamp_min(0.0)
+    d = 2.0 * e * (w * mel).sqrt() + e * e * w
+    x = mel + LOG_EPS
+    return torch.maximum(torch.log1p(d / x), -torch.log(torch.maximum(
+        1.0 - d / x, LOG_EPS / x)))
 
 
 def log_mel_cuda(waveform: torch.Tensor, cfg: MelConfig) -> torch.Tensor:

@@ -48,6 +48,59 @@ def layer_norm(params: dict, x: Tensor, *, eps: float = 1e-5) -> Tensor:
     return y.to(x.dtype)
 
 
+def batch_norm(params: dict, state: dict, x: Tensor, *, training: bool,
+               momentum: float = 0.1, eps: float = 1e-5) -> tuple:
+    """x (B, T, C) normalised per channel over (B, T) in float32: torch
+    BatchNorm1d's semantics, channels-last. In training the batch's
+    statistics normalise and the running ones move by `momentum` (the
+    variance with the unbiased n / (n - 1) correction); otherwise the
+    running ones normalise. Returns (y in x's dtype, new state); the new
+    state holds no gradient."""
+    xf = x.float()
+    if training:
+        mean = xf.mean(dim=(0, 1))
+        var = (xf - mean).square().mean(dim=(0, 1))
+        n = x.shape[0] * x.shape[1]
+        with torch.no_grad():
+            unbiased = var * (n / max(n - 1, 1))
+            new_state = {
+                "mean": (1 - momentum) * state["mean"] + momentum * mean,
+                "var": (1 - momentum) * state["var"] + momentum * unbiased,
+            }
+    else:
+        mean, var = state["mean"], state["var"]
+        new_state = state
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype), new_state
+
+
+def group_norm(params: dict, x: Tensor, *, num_groups: int = 32,
+               eps: float = 1e-5) -> Tensor:
+    """x (B, T, C) normalised per sample over (T, C // g) in each of g
+    channel groups, float32; no running state."""
+    b, t, c = x.shape
+    g = min(num_groups, c)
+    xf = x.float().reshape(b, t, g, c // g)
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    var = (xf - mean).square().mean(dim=(1, 3), keepdim=True)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, t, c)
+    return (y * params["scale"] + params["bias"]).to(x.dtype)
+
+
+def dropout(generator: Optional[torch.Generator], x: Tensor, rate: float,
+            *, training: bool) -> Tensor:
+    """Inverted dropout: each element kept with probability 1 - rate (a
+    uniform draw from `generator` below it) and scaled by 1 / (1 - rate).
+    The identity when not training, at rate 0 or without a generator. The
+    generator must live on x's device."""
+    if not training or rate <= 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
 def embedding_lookup(params: dict, ids: Tensor) -> Tensor:
     return params["table"][ids]
 
@@ -65,6 +118,17 @@ def sinusoidal_embeddings(length: int, dim: int,
     return emb
 
 
+def sinusoidal_embeddings_ref(length: int, dim: int,
+                              max_timescale: float = 10000.0) -> Tensor:
+    """The UrbanSound classifier's sinusoids: concat(sin, cos), with the
+    frequency denominator `half` where whisper's has `half - 1`."""
+    half = dim // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32)
+                      * (math.log(max_timescale) / half))
+    args = torch.arange(length, dtype=torch.float32)[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
 def causal_mask(t: int, device=None) -> Tensor:
     """(1, 1, t, t) True on and below the diagonal."""
     return torch.ones((t, t), dtype=torch.bool,
@@ -73,12 +137,17 @@ def causal_mask(t: int, device=None) -> Tensor:
 
 def multihead_attention(params: dict, q_in: Tensor, kv_in: Tensor, *,
                         num_heads: int, mask: Optional[Tensor] = None,
-                        impl: str = "xla", causal: bool = False) -> Tensor:
+                        impl: str = "xla", causal: bool = False,
+                        dropout_rate: float = 0.0,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Tensor:
     """Self- or cross-attention, q_in (B, Tq, D), kv_in (B, Tk, D).
 
     impl="xla" is matmul + float32 softmax (the reference's XLA
     formulation), with `mask` (broadcastable to (B, H, Tq, Tk), True =
-    keep) or `causal`. impl="flash" projects straight to the head-major
+    keep) or `causal`, and dropout of the attention probabilities at
+    `dropout_rate` when a generator is given (torch MultiheadAttention's
+    semantics). impl="flash" projects straight to the head-major
     (B, H, T, hd) layout and runs the flash-attention kernels
     (`ops.attention.flash_attention`, forward and backward); it takes no
     mask beyond `causal`."""
@@ -91,10 +160,10 @@ def multihead_attention(params: dict, q_in: Tensor, kv_in: Tensor, *,
     q, k, v = (heads(params["q"], q_in), heads(params["k"], kv_in),
                heads(params["v"], kv_in))
     if impl == "flash":
-        if mask is not None:
+        if mask is not None or (dropout_rate > 0.0 and generator is not None):
             raise NotImplementedError(
-                "flash path supports only causal masking; pass impl='xla' "
-                "for arbitrary masks")
+                "flash path supports only causal masking and no dropout; "
+                "pass impl='xla' for arbitrary masks or dropout")
         from audio_transformers_tpu_torch.ops.attention import \
             flash_attention
         out = flash_attention(q, k, v, causal=causal)     # (B, H, Tq, hd)
@@ -109,5 +178,7 @@ def multihead_attention(params: dict, q_in: Tensor, kv_in: Tensor, *,
     if mask is not None:
         logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
+    if dropout_rate > 0.0 and generator is not None:
+        probs = dropout(generator, probs, dropout_rate, training=True)
     out = torch.matmul(probs.to(v.dtype), v)              # (B, H, Tq, hd)
     return linear(params["o"], out.transpose(1, 2).reshape(b, tq, d))

@@ -20,9 +20,12 @@ val loss (params and the metadata `from_checkpoint` reads) and resume/
 the last epoch's full state (params, optimizer moments, the schedule's
 position), from which a rerun with the same output directory resumes.
 
-Not ported yet, and raising NotImplementedError: SpecAugment (the
-reference draws its masks from jax.random; it needs its own slice) and
-activation checkpointing (remat).
+With `spec_augment` the mel features are masked after the cast
+(`ops/specaugment.py`), the masks drawn from one generator per epoch
+seeded from (seed + 1, epoch) (`epoch_generator`), as the reference folds
+the epoch into the key of seed + 1; the draws are not `jax.random`'s. Not
+ported yet, and raising NotImplementedError: activation checkpointing
+(remat).
 """
 
 from __future__ import annotations
@@ -31,7 +34,6 @@ import os
 import time
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -39,17 +41,19 @@ from audio_transformers_tpu_torch.core.config import (
     EmotionWhisperConfig, MelConfig, TrainConfig)
 from audio_transformers_tpu_torch.core import params as cp
 from audio_transformers_tpu_torch.core.checkpoint import (Checkpointer,
-                                                          check_structure,
                                                           save_label_map)
 from audio_transformers_tpu_torch.core.params import resolve_device
 from audio_transformers_tpu_torch.core.metrics import MetricLogger, StepTimer
 from audio_transformers_tpu_torch.models.whisper import emotion as emo
+from audio_transformers_tpu_torch.ops import specaugment as sa
 from audio_transformers_tpu_torch.ops.mel import log_mel
+from audio_transformers_tpu_torch.train.common import (DTYPES,
+                                                       batch_to_device,
+                                                       epoch_generator,
+                                                       host_copy,
+                                                       restore_into)
 from audio_transformers_tpu_torch.train.optim import (build_optimizer,
                                                       frozen_leaf_decay_mask)
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
 
 def dual_loss(logits: torch.Tensor, emotion_logits: torch.Tensor,
               labels: torch.Tensor, emotion_labels: torch.Tensor, *,
@@ -77,35 +81,24 @@ def dual_loss(logits: torch.Tensor, emotion_logits: torch.Tensor,
             "emotion_accuracy": acc}
 
 
-def batch_to_device(batch: Dict[str, np.ndarray], device) -> dict:
-    """A host batch (numpy) -> tensors on `device`; ids become int64."""
-    out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.asarray(v))
-        if not t.is_floating_point() and t.dtype != torch.bool:
-            t = t.long()
-        out[k] = t.to(device)
-    return out
-
-
 def make_steps(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
                train_cfg: TrainConfig, opt, device):
     """(train_step, eval_step) over the parameter tree they are given.
 
-    train_step(params, batch) updates the parameters in place through
-    `opt` and returns the step's metrics as device scalars; eval_step
+    train_step(params, batch, generator=None) updates the parameters in
+    place through `opt` and returns the step's metrics as device scalars;
+    with spec_augment, `generator` (on `device`) draws the step's masks,
+    and without one nothing is masked; eval_step
     returns masked sums weighted by `valid`, so wrap-padded rows of the
     last eval batch count for nothing.
 
     attn_impl "auto" trains with the flash kernels on CUDA and with plain
     attention on the CPU; eval runs plain attention unless attn_impl names
     one (the reference resolves eval's "auto" to XLA)."""
-    if train_cfg.spec_augment:
-        raise NotImplementedError("spec_augment is not ported yet")
     if train_cfg.remat:
         raise NotImplementedError("remat is not ported yet")
     device = torch.device(device)
-    compute_dtype = _DTYPES[train_cfg.compute_dtype]
+    compute_dtype = DTYPES[train_cfg.compute_dtype]
     pad = cfg.whisper.pad_token_id
     attn_impl = train_cfg.attn_impl
     if attn_impl == "auto":
@@ -114,14 +107,16 @@ def make_steps(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
         else "xla"
     mel_precision = "high" if compute_dtype == torch.bfloat16 else "highest"
 
-    def forward(params, batch, attn):
+    def forward(params, batch, attn, generator=None):
         mel = log_mel(batch["waveform"], mel_cfg,
                       precision=mel_precision).to(compute_dtype)
+        if train_cfg.spec_augment and generator is not None:
+            mel = sa.spec_augment(generator, mel)
         return emo.forward_train(params, cfg, mel, batch["labels"][:, :-1],
                                  attn_impl=attn)
 
-    def train_step(params, batch):
-        logits, emotion_logits = forward(params, batch, attn_impl)
+    def train_step(params, batch, generator=None):
+        logits, emotion_logits = forward(params, batch, attn_impl, generator)
         out = dual_loss(logits, emotion_logits, batch["labels"],
                         batch["emotion_labels"], pad_token_id=pad,
                         emotion_weight=train_cfg.emotion_weight)
@@ -168,25 +163,6 @@ def evaluate(eval_step, params, batcher, device, *,
             "transcription_loss": transcription,
             "emotion_loss": emotion,
             "emotion_accuracy": sums["correct"] / max(sums["count"], 1.0)}
-
-
-def _host_copy(params):
-    return cp.map_tensors(params, lambda t: t.detach().cpu().clone())
-
-
-def _restore_into(params, opt, resume_ckpt: Checkpointer) -> tuple:
-    """Loads resume/'s latest step into the live `params` (copied in
-    place: `opt` holds references to these leaves) and `opt`; returns
-    (metadata, step)."""
-    tree, meta, step = resume_ckpt.restore()
-    check_structure(tree["params"], params,
-                    f"{resume_ckpt.directory} step {step}")
-    with torch.no_grad():
-        for (_, t), (_, src) in zip(cp.leaves_with_path(params),
-                                    cp.leaves_with_path(tree["params"])):
-            t.copy_(src)
-    opt.load_state_dict(tree["opt_state"])
-    return meta or {}, step
 
 
 def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
@@ -241,7 +217,7 @@ def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
     step = 0
     start_epoch = 0
     if resume_ckpt is not None and resume_ckpt.latest_step() is not None:
-        meta, step = _restore_into(params, opt, resume_ckpt)
+        _, meta, step = restore_into(params, opt, resume_ckpt)
         start_epoch = meta.get("epoch", 0)
         best_val_loss = meta.get("best_val_loss", float("inf"))
         if ckpt.best_step() is not None:
@@ -255,6 +231,8 @@ def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
         timer.reset()
         sums = None
         n = 0
+        generator = (epoch_generator(train_cfg.seed + 1, epoch, device)
+                     if train_cfg.spec_augment else None)
         batches = train_batcher.train_epochs(epoch=epoch)
         while True:
             t0 = time.perf_counter()
@@ -262,7 +240,7 @@ def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
             timer.data_tick(time.perf_counter() - t0)
             if batch is None:
                 break
-            m = train_step(params, batch_to_device(batch, device))
+            m = train_step(params, batch_to_device(batch, device), generator)
             sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
             n += 1
             step += 1
@@ -284,7 +262,7 @@ def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
         log.log(row, step=step)
         if val["loss"] < best_val_loss:
             best_val_loss = val["loss"]
-            best_params = _host_copy(params)
+            best_params = host_copy(params)
             if ckpt is not None:
                 ckpt.save(step, {"params": best_params},
                           metadata={"cfg": cfg.to_json(),
@@ -301,6 +279,6 @@ def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
 
     log.finish()
     if best_params is None:   # no epoch improved (e.g. none ran)
-        best_params = _host_copy(params)
+        best_params = host_copy(params)
     return {"params": params, "best_params": best_params, "optimizer": opt,
             "history": history, "best_val_loss": best_val_loss}

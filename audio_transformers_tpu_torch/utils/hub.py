@@ -1,14 +1,18 @@
-"""HF-format export and Hub publishing, the whisper part of
+"""HF-format export and Hub publishing, the port of
 `audio_transformers_tpu/utils/hub.py`.
 
 Exported state dicts use the reference wrapper's key names
-(`whisper.model...` plus `emotion_classifier.*`) and materialise the tied
-`whisper.proj_out.weight`, so that the reference's loaders and the JAX
-package (`EmotionWhisperPipeline.from_hf_dir`) read the port's models
-unchanged. The port's leaves are already in PyTorch's layouts; every
-value is written as float32. `model.safetensors` is written by the port's
-own writer (`utils/safetensors.py`); `huggingface_hub` is imported only
-by `push_to_hub`.
+(`whisper.model...` plus `emotion_classifier.*`) and materialise the
+tied `whisper.proj_out.weight`, so that the reference's loaders and the
+JAX package (`EmotionWhisperPipeline.from_hf_dir`) read the port's
+models unchanged. The UrbanSound classifier exports as one safetensors
+file with the reference architecture's torch module names
+(`classifier_to_torch_state_dict`), BatchNorm running statistics and the
+`position_embeddings` table included. The port's leaves are already in
+PyTorch's layouts; every value is written as float32.
+`model.safetensors` is written by the port's own writer
+(`utils/safetensors.py`); `huggingface_hub` is imported only by
+`push_to_hub`.
 """
 
 from __future__ import annotations
@@ -145,6 +149,59 @@ def export_hf_dir(params: dict, cfg: EmotionWhisperConfig, out_dir: str, *,
         if val_accuracy is not None:
             f.write(f"Emotion Accuracy: {val_accuracy:.4f}\n\n")
     return out_dir
+
+
+def classifier_to_torch_state_dict(params: dict, state: dict
+                                   ) -> Dict[str, torch.Tensor]:
+    """The classifier's (params, state) -> the reference module's flat
+    state dict of float32 CPU tensors (q, k and v fused into the
+    attention's `in_proj_*`)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def lin(name, p):   # linear and conv alike: torch layouts already
+        sd[f"{name}.weight"] = _t(p["w"])
+        if "b" in p:
+            sd[f"{name}.bias"] = _t(p["b"])
+
+    def norm(name, p, s=None):
+        sd[f"{name}.weight"] = _t(p["scale"])
+        sd[f"{name}.bias"] = _t(p["bias"])
+        if s:   # BatchNorm's running statistics; GroupNorm has none
+            sd[f"{name}.running_mean"] = _t(s["mean"])
+            sd[f"{name}.running_var"] = _t(s["var"])
+
+    lin("conv_module.conv1", params["conv1"])
+    lin("conv_module.conv2", params["conv2"])
+    norm("conv_module.bn1", params["bn1"], state["bn1"])
+    norm("conv_module.bn2", params["bn2"], state["bn2"])
+    if "proj" in params:
+        lin("projection", params["proj"])
+    sd["position_embeddings"] = _t(state["pos"])
+    for i, bp in enumerate(params["blocks"]):
+        pre = f"encoder_blocks.{i}"
+        norm(f"{pre}.attn_ln", bp["attn_ln"])
+        qkv = [bp["attn"][k] for k in ("q", "k", "v")]
+        sd[f"{pre}.attn.in_proj_weight"] = torch.cat([_t(p["w"])
+                                                      for p in qkv])
+        sd[f"{pre}.attn.in_proj_bias"] = torch.cat([_t(p["b"]) for p in qkv])
+        lin(f"{pre}.attn.out_proj", bp["attn"]["o"])
+        norm(f"{pre}.mlp_ln", bp["mlp_ln"])
+        lin(f"{pre}.mlp.0", bp["fc1"])
+        lin(f"{pre}.mlp.3", bp["fc2"])
+    norm("ln_post", params["ln_post"])
+    for i, (cp, cs) in enumerate(zip(params["cnn"], state["cnn"])):
+        lin(f"cnn_module.cnn_layers.{i}.0", cp["conv"])
+        norm(f"cnn_module.cnn_layers.{i}.1", cp["bn"], cs)
+    lin("classifier", params["cls"])
+    return sd
+
+
+def export_classifier(params: dict, state: dict, out_path: str) -> str:
+    """Writes the classifier to `out_path` as safetensors with the
+    reference's torch-convention keys; returns `out_path`."""
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    save_file(classifier_to_torch_state_dict(params, state), out_path)
+    return out_path
 
 
 def push_to_hub(local_dir: str, repo_id: str,

@@ -114,7 +114,27 @@ each raising on failure:
      against 1 epoch, a preemption and a resume to 2: the parameters
      bit-equal, else the largest difference within 2 * steps * lr (PERF.md
      §6). Every load and save wall time is logged beside the card's name
-     and power limit.
+     and power limit;
+  22. the UrbanSound classifier at the test widths (conv 32, encoder 32,
+     2 blocks, CNN head 32 and 48) in float32, dropout 0: 3 train steps
+     and one eval on the card (K3) against the same on the CPU (plain
+     versions), on 4 s clips and on 3 s clips zero-padded to 4 s; then K3
+     at UrbanSound's preset on 16 clips zero-padded to 4 s at five
+     lengths (3 s, and the lengths that put the last frame with signal or
+     the first silent one at either place of its FFT pair);
+  23. the classifier's training path at full width through the CLI:
+     `train_classifier --dataset synthetic --batch_size 64 --epochs 2
+     --limit_samples 320 --compute_dtype bfloat16 --spec_augment`, launch
+     counters reset around the run: K3 launched once per train and eval
+     step and no plain version on CUDA; `best_model.safetensors` read back
+     by the port's reader with the reference's keys; a rerun to 3 epochs
+     resumes from checkpoints-resume; clips/s, data wait and each save's
+     wall time logged;
+  24. the classifier's steady-state train step at full width, batch 64,
+     bf16, SpecAugment, dropout 0.1: the mean of 20 steps by CUDA events,
+     device busy, idle share, K3's device time and the kernels per step
+     from torch.profiler over 10 steps; K3 alone at (64, 88200) against
+     its plain version and its bound.
 
 Tolerances (kernel vs plain version, on the card):
   K1 decode_cross_attention: 1e-5 abs in float32 (sum order only);
@@ -135,7 +155,16 @@ Tolerances (kernel vs plain version, on the card):
      max|k|): ds = p (dP - delta) cancels (exactly when Tk = 1), leaving
      the float32 sum-order noise of dP, about 2^-24 d max|dO| max|v| per
      entry, in both versions.
+  K3 on clips zero-padded to 4 s (UrbanSound's preset): K3_TOL +
+     `mel_cuda.pair_error_bound`, the float32 rounding of the frame
+     pair's FFT carried through the power, the filterbank and log(mel +
+     1e-9) (derived in its docstring).
   K5 permute_rows: bit for bit (a pure copy).
+  The classifier, card vs CPU (test widths, float32, 3 steps): losses and
+     the eval loss within 1e-4 relative; logits within 1e-3 * max(1,
+     max|cpu|); parameters and BatchNorm running statistics within 2 *
+     steps * lr (Adam; the conv biases before BatchNorm get only
+     sum-order noise as gradient, and the running means take them in).
   One train step, card vs CPU (test config, float32): losses within 1e-4
      relative; gradients within 1e-3 * max(1, max|cpu|) per leaf (log-mel
      features differ by up to 2e-4); updated parameters within 2 * lr + 1e-6
@@ -158,7 +187,11 @@ threshold 2.4),
 K2's `device_ms`, K3's `device_ms` and `kernels_per_call` (K3's own),
 `call_device_ms` and `call_kernels` (the whole `log_mel` call: K3 and the
 whisper floor after it) and `stft_ms` (torch.stft's device time, no
-library call of the same function: the STFT alone).
+library call of the same function: the STFT alone); K3's
+`launches_classifier` (phase 23's first run), `classifier_*_b64` (phase
+24's step: ms, busy ms, idle share, kernels, K3's device ms),
+`urbansound_b64_*` (K3 alone at the classifier's batch) and its errors on
+zero-padded clips (`max_abs_err_padded`, `padded_share_of_bound`).
 The last line is {"ok": true, "device": {...}}. Nothing of JAX is
 imported.
 """
@@ -1086,7 +1119,7 @@ def _tiny_steps(torch, port, params0, attn, lr, batch_size):
 
 
 def check_overfit(torch, port, params0):
-    from audio_transformers_tpu_torch.train.whisper_emotion import \
+    from audio_transformers_tpu_torch.train.common import \
         batch_to_device
     w = port.WhisperConfig()
     batch = batch_to_device(train_batch(4, 30.0, w, 9, seed=11), "cuda")
@@ -1103,7 +1136,7 @@ def time_train_step(torch, port, params0):
     """Steady-state train-step ms at batch 16: plain attention vs flash
     kernels, four turns each (plain, flash, flash, plain, flash, plain,
     plain, flash); returns the mean of each path's turns."""
-    from audio_transformers_tpu_torch.train.whisper_emotion import \
+    from audio_transformers_tpu_torch.train.common import \
         batch_to_device
     w = port.WhisperConfig()
     batch = batch_to_device(train_batch(16, 30.0, w, 9, seed=13), "cuda")
@@ -1799,6 +1832,425 @@ def check_checkpoint_path(torch, _build, port, run_dir, hf_dir, smi):
     return times
 
 
+# ---------------------------------------------------------------------------
+# phases 22-24: the UrbanSound classifier
+# ---------------------------------------------------------------------------
+
+# the test widths of the classifier (the JAX package's tests' SMALL)
+US_SMALL = dict(n_mels=64, num_classes=10, conv_dim=32, encoder_dim=32,
+                num_encoder_blocks=2, num_heads=4, dropout=0.0,
+                cnn_dims=(32, 48))
+US_RATE, US_CLIP = 22050, 88200
+
+
+def classifier_keys(cfg):
+    """The reference module's state-dict keys of a classifier config
+    (BatchNorm with running statistics, q/k/v fused in in_proj)."""
+    keys = {"position_embeddings"}
+
+    def mod(name, *leaves):
+        keys.update(f"{name}.{leaf}" for leaf in leaves)
+
+    for name in ("conv_module.conv1", "conv_module.conv2", "classifier"):
+        mod(name, "weight", "bias")
+    for name in ("conv_module.bn1", "conv_module.bn2"):
+        mod(name, "weight", "bias", "running_mean", "running_var")
+    if cfg.conv_dim != cfg.encoder_dim:
+        mod("projection", "weight", "bias")
+    mod("ln_post", "weight", "bias")
+    for i in range(cfg.num_encoder_blocks):
+        pre = f"encoder_blocks.{i}"
+        mod(f"{pre}.attn", "in_proj_weight", "in_proj_bias")
+        for name in ("attn_ln", "attn.out_proj", "mlp_ln", "mlp.0", "mlp.3"):
+            mod(f"{pre}.{name}", "weight", "bias")
+    for i in range(len(cfg.cnn_dims)):
+        mod(f"cnn_module.cnn_layers.{i}.0", "weight", "bias")
+        mod(f"cnn_module.cnn_layers.{i}.1", "weight", "bias", "running_mean",
+            "running_var")
+    return keys
+
+
+def check_k3_padded(torch, mel, gen, smi):
+    """K3 at UrbanSound's preset on clips zero-padded to 4 s, against its
+    plain version within K3_TOL + `mel_cuda.pair_error_bound` (a silent
+    frame paired with a loud one carries the loud one's rounding, which
+    log(mel + 1e-9) makes relative): 16 clips of 3 s, then the lengths
+    that put the last frame with signal, or the first silent one, at
+    either place of its pair. Returns (max |err|, max |err| / (K3_TOL +
+    bound), max |err| of the 3 s clips)."""
+    from audio_transformers_tpu_torch.ops import mel_cuda
+    cfg = mel.MelConfig.urbansound()
+    worst, ratio, err_3s = 0.0, 0.0, None
+    for length in (3 * US_RATE, 512 * 128 + 1, 512 * 128 + 6,
+                   512 * 129 + 3, 512 * 40):
+        wav = torch.zeros((16, US_CLIP), device="cuda")
+        wav[:, :length] = 0.3 * torch.randn((16, length), generator=gen,
+                                            device="cuda")
+        got = mel.log_mel(wav, cfg)
+        want = mel.log_mel_torch(wav, cfg)
+        power = mel.log_mel_torch(wav, cfg.replace(log_mode="none"))
+        bnd = mel_cuda.pair_error_bound(wav, cfg, power)
+        err = (got - want).abs().double()
+        r = (err / (K3_TOL + bnd)).max().item()
+        log(f"K3 UrbanSound padded ({smi}): 16 clips of {length} samples "
+            f"zero-padded to {US_CLIP}: max_abs_err {err.max().item():.3e}, "
+            f"{r:.3f} of K3_TOL + pair_error_bound")
+        require(r <= 1.0, f"K3 padded clips of {length} samples")
+        worst, ratio = max(worst, err.max().item()), max(ratio, r)
+        if err_3s is None:
+            err_3s = err.max().item()
+    return worst, ratio, err_3s
+
+
+def first_step_err(got, want, lr):
+    """Holds one classifier step of `got` against `want`, each (gradients,
+    params after the step, BN state after it) as {path: host tensor}:
+    every leaf's gradient within 1e-4 * max(1, max |g|), except a leaf
+    whose wanted gradient is rounding (under 1e-6 of the tree's largest:
+    the conv biases before BatchNorm and the attention's key biases, whose
+    exact gradient is 0), which must be rounding in `got` too; after the
+    Adam step the params within 1e-6 where the wanted gradient exceeds
+    its tolerance (the comparison fixes the sign there), elsewhere within
+    2 lr; the BN state within 1e-6 + 1e-5 |x|. Returns (the largest
+    gradient error over its tolerance, the largest such param move, the
+    largest state error over its tolerance, the rounding leaves)."""
+    (gg, gp, gs), (wg, wp, ws) = got, want
+    floor = 1e-6 * max(w.abs().max().item() for w in wg.values())
+    g_ratio = p_sure = s_ratio = 0.0
+    rounding = []
+    for path, w in wg.items():
+        g, moved = gg[path], (gp[path] - wp[path]).abs()
+        require(moved.max().item() <= 2 * lr, f"{path}: moved "
+                f"{moved.max().item()} > 2 lr")
+        if w.abs().max().item() <= floor:
+            rounding.append(path)
+            require(g.abs().max().item() <= floor, f"{path}: gradient "
+                    f"{g.abs().max().item()} where the reference's is "
+                    f"rounding (<= {floor})")
+            continue
+        tol = 1e-4 * max(1.0, w.abs().max().item())
+        g_ratio = max(g_ratio, (g - w).abs().max().item() / tol)
+        require(g_ratio <= 1.0, f"{path}: gradient error "
+                f"{(g - w).abs().max().item()} > {tol}")
+        sure = moved[w.abs() > tol]
+        p_sure = max(p_sure, sure.max().item() if sure.numel() else 0.0)
+        require(p_sure <= 1e-6, f"{path}: params after one step differ by "
+                f"{p_sure}")
+    for path, w in ws.items():
+        s_ratio = max(s_ratio, ((gs[path] - w).abs()
+                                / (1e-6 + 1e-5 * w.abs())).max().item())
+        require(s_ratio <= 1.0, f"{path}: BN state after one step")
+    return g_ratio, p_sure, s_ratio, rounding
+
+
+def check_small_classifier(torch, _build, mel):
+    """Phase 22: the classifier at the test widths in float32 (dropout 0),
+    the card (K3) against the CPU (plain versions), on 4 s clips and on
+    3 s clips zero-padded to 4 s. 3 train steps and one eval end to end:
+    losses within 1e-4 relative, logits within 1e-3 of their scale. The
+    first step's gradients, params and BN state (`first_step_err`)
+    against a CPU step fed the card's features, so that the comparison
+    holds the step's own arithmetic (cuDNN, cuBLAS, autograd on the card)
+    and not K3's rounding, which phase 3 and `check_k3_padded` hold."""
+    from audio_transformers_tpu_torch.core import params as cp
+    from audio_transformers_tpu_torch.core.config import (MelConfig,
+                                                          OptimizerConfig,
+                                                          TrainConfig,
+                                                          UrbanSoundConfig)
+    from audio_transformers_tpu_torch.data.synthetic import \
+        SyntheticClassification
+    from audio_transformers_tpu_torch.models.urbansound import model as us
+    from audio_transformers_tpu_torch.train import classifier as tc
+    from audio_transformers_tpu_torch.train.common import batch_to_device
+    from audio_transformers_tpu_torch.train.optim import build_optimizer
+    # lr 1e-4: the conv biases before each BatchNorm get only rounding
+    # as gradient, which Adam turns into steps of lr either way on each
+    # side; train-mode BatchNorm cancels them, but the eval-mode running
+    # means took them in, so the eval loss drifts apart by about lr
+    cfg, mel_cfg, lr = UrbanSoundConfig(**US_SMALL), MelConfig.urbansound(), \
+        1e-4
+    tcfg = TrainConfig(batch_size=8, compute_dtype="float32",
+                       optimizer=OptimizerConfig(
+                           name="adam", learning_rate=lr,
+                           schedule="reduce_on_plateau"))
+    params0, state0 = us.init(cfg, torch.Generator().manual_seed(0))
+    ds = SyntheticClassification(num_samples=8, num_classes=10, seed=3)
+
+    def host(tree):
+        return {p: t.detach().cpu().clone()
+                for p, t in cp.leaves_with_path(tree)}
+
+    def run(dev, batch, steps, features=None):
+        """(losses, eval sums, first step (grads, params, state), params,
+        state) of `steps` train steps on `dev`; with `features`, the
+        steps take them in place of the log-mel of the batch."""
+        params = _fresh(torch, params0, dev)
+        state = cp.map_tensors(state0, lambda t: t.to(dev).clone())
+        opt = build_optimizer(tcfg.optimizer, params)
+        train_step, eval_step = tc.make_steps(cfg, mel_cfg, tcfg, opt)
+        b = batch_to_device(batch, dev)
+        log_mel = tc.log_mel
+        if features is not None:
+            tc.log_mel = lambda wav, c: features.to(wav.device)
+        try:
+            losses, first = [], None
+            for _ in range(steps):
+                state, m = train_step(params, state, b)
+                losses.append(m["loss"].item())
+                if first is None:
+                    first = ({p: t.grad.cpu().clone()
+                              for p, t in cp.leaves_with_path(params)},
+                             host(params), host(state))
+            ev = {k: v.item()
+                  for k, v in eval_step(params, state, b).items()}
+        finally:
+            tc.log_mel = log_mel
+        return losses, ev, first, params, state
+
+    for seconds in (4.0, 3.0):
+        batch = next(ds.batcher(8).train_epochs(epoch=0))
+        batch["waveform"][:, int(seconds * US_RATE):] = 0.0
+        _build.reset_stats()
+        gl, ge, gfirst, gp, gs = run("cuda", batch, 3)
+        with torch.no_grad():
+            wav = batch_to_device(batch, "cuda")["waveform"]
+            glog = us.apply(gp, gs, cfg, mel.log_mel(wav, mel_cfg))[0].cpu()
+        stats = _launches()
+        require(stats["log_mel"][0] == 5, f"K3 on each of 5 classifier "
+                f"calls: {stats['log_mel']}")
+        _require_launched(stats, ("log_mel",), "phase 22")
+        cl, ce, _, cpp, cs = run("cpu", batch, 3)
+        with torch.no_grad():
+            clog = us.apply(cpp, cs, cfg, mel.log_mel(
+                batch_to_device(batch, "cpu")["waveform"], mel_cfg))[0]
+        for g, c in zip(gl + [ge["loss_sum"]], cl + [ce["loss_sum"]]):
+            require(abs(g - c) <= 1e-4 * abs(c), f"classifier loss: card "
+                    f"{g} vs CPU {c}")
+        require(ge["count"] == ce["count"] == 8, "eval count")
+        lerr = (glog - clog).abs().max().item()
+        lscale = max(1.0, clog.abs().max().item())
+        require(lerr <= 1e-3 * lscale, f"classifier logits differ by {lerr}")
+        features = mel.log_mel(wav, mel_cfg).cpu()
+        _, _, cfirst, _, _ = run("cpu", batch, 1, features)
+        g_ratio, p_sure, s_ratio, rounding = first_step_err(gfirst, cfirst,
+                                                            lr)
+        log(f"small classifier ({seconds:g} s clips in 4 s, f32, lr {lr:g}, "
+            f"3 steps + eval): losses card {gl} vs CPU {cl}; eval loss_sum "
+            f"{ge['loss_sum']:.6f} vs {ce['loss_sum']:.6f}; logits "
+            f"max_abs_err {lerr:.3e} (tol {1e-3 * lscale:.1e}); K3 launches "
+            f"{stats['log_mel'][0]}; first step against the CPU on the "
+            f"card's features: gradients {g_ratio:.3e} of their tolerance "
+            f"(1e-4 max(1, max |g|)), params {p_sure:.3e} where the "
+            f"gradient exceeds it (bound 1e-6), BN state {s_ratio:.3e} of "
+            f"1e-6 + 1e-5 |x|; rounding-level leaves {rounding}")
+
+
+def check_classifier_cli(torch, _build, smi):
+    """Phase 23: train_classifier at full width through the CLI (bf16,
+    batch 64, SpecAugment, 2 epochs of 320 synthetic clips), then a rerun
+    to 3 epochs that resumes from checkpoints-resume; launch counters reset
+    around each run. Returns the first run's K3 launches."""
+    from audio_transformers_tpu_torch.cli import train_classifier
+    from audio_transformers_tpu_torch.core.config import UrbanSoundConfig
+    from audio_transformers_tpu_torch.utils.safetensors import load_file
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_classifier_")
+    args = ["--dataset", "synthetic", "--batch_size", "64",
+            "--limit_samples", "320", "--compute_dtype", "bfloat16",
+            "--spec_augment", "--num_workers", "4", "--device", "cuda",
+            "--output_dir", out_dir]
+    eval_batches = 1          # 64 validation clips in one batch
+    launches, count = [], 0
+    try:
+        for epochs in (2, 3):
+            torch.cuda.synchronize()
+            _build.reset_stats()
+            t0 = time.perf_counter()
+            with SaveTimer() as saves:
+                out = train_classifier.main(args + ["--epochs", str(epochs)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            stats = _launches()
+            what = f"train_classifier --epochs {epochs}"
+            steps = out["optimizer"].count - count
+            count = out["optimizer"].count
+            ran = [row["epoch"] for row in out["history"]]
+            require(ran == ([1, 2] if epochs == 2 else [3]),
+                    f"{what}: epochs {ran} (a rerun resumes at 3)")
+            _require_launched(stats, ("log_mel",), what)
+            want = steps + len(ran) * eval_batches
+            require(stats["log_mel"][0] == want, f"{what}: K3 launched "
+                    f"{stats['log_mel'][0]} times for {steps} train and "
+                    f"{len(ran) * eval_batches} eval steps")
+            require(all(math.isfinite(v) for row in out["history"]
+                        for k, v in row.items() if "loss" in k),
+                    f"{what}: finite losses")
+            launches.append(stats["log_mel"][0])
+            log(f"{what} (UrbanSound full width, bf16, batch 64; {smi}): "
+                f"{steps} steps + {len(ran)} evals in {wall:.3f} s; "
+                f"launches / plain-on-CUDA calls: {stats}")
+            for row in out["history"]:
+                log(f"  epoch {row['epoch']}: clips_per_sec "
+                    f"{row['clips_per_sec']:.1f}, data_wait_s "
+                    f"{row['data_wait_s']:.3f}, train/loss "
+                    f"{row['train/loss']:.4f}, val/accuracy "
+                    f"{row['val/accuracy']:.4f}")
+            for directory, step, seconds, size in saves.saves:
+                log(f"  Checkpointer.save of {directory}/{step} "
+                    f"({size / 1e6:.1f} MB): {seconds:.3f} s")
+            require({d for d, *_ in saves.saves} >= {"checkpoints-resume"},
+                    f"{what}: a resume save per epoch")
+        sd = load_file(os.path.join(out_dir, "best_model.safetensors"))
+        want = classifier_keys(UrbanSoundConfig())
+        require(set(sd) == want, f"best_model.safetensors keys: "
+                f"{sorted(set(sd) ^ want)[:6]}")
+        require(tuple(sd["position_embeddings"].shape) == (1000, 256)
+                and tuple(sd["conv_module.conv1.weight"].shape)
+                == (128, 64, 3), "best_model.safetensors shapes")
+        require(all(torch.isfinite(t).all() for t in sd.values()),
+                "finite exported weights")
+        log(f"best_model.safetensors: {len(sd)} tensors, the reference's "
+            f"keys, read back by the port's reader")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return launches[0]
+
+
+def profiled_window(fn, reps, per_rep):
+    """(kernel events [(name, us)], wall ms) of `reps` calls of fn() under
+    torch.profiler, after a warm-up call and one more call inside the
+    profiler's warm-up cycle, which it does not record (the records of the
+    first kernels after the profiler starts have gone missing now and
+    then). A trace whose kernels per call are not what `per_rep(events)`
+    expects is taken again, up to PROFILE_TRIES times, and said so; then
+    it fails."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=reps,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+                prof.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if events and per_rep(events):
+            return events, wall
+        log(f"the profiler's trace {attempt + 1} of {PROFILE_TRIES} holds "
+            f"{len(events)} kernels, not the calls' own")
+    require(False, "no whole profiler trace")
+
+
+def time_classifier_step(torch, _build, mel, smi):
+    """Phase 24: the classifier's train step at full width, batch 64,
+    bf16, SpecAugment and dropout 0.1 (the CLI's): the mean of 20 steps
+    after warm-up by CUDA events; device busy, K3's device time and the
+    kernels per step from torch.profiler over 10 steps, and the idle share
+    1 - busy / the event-timed step; K3
+    alone at (64, 88200) against its plain version and its bound."""
+    from audio_transformers_tpu_torch.core import params as cp
+    from audio_transformers_tpu_torch.core.config import (MelConfig,
+                                                          OptimizerConfig,
+                                                          TrainConfig,
+                                                          UrbanSoundConfig)
+    from audio_transformers_tpu_torch.data.synthetic import \
+        SyntheticClassification
+    from audio_transformers_tpu_torch.models.urbansound import model as us
+    from audio_transformers_tpu_torch.train import classifier as tc
+    from audio_transformers_tpu_torch.train.optim import build_optimizer
+    from audio_transformers_tpu_torch.train.common import \
+        batch_to_device
+    cfg, mel_cfg = UrbanSoundConfig(), MelConfig.urbansound()
+    tcfg = TrainConfig(batch_size=64, compute_dtype="bfloat16",
+                       spec_augment=True,
+                       optimizer=OptimizerConfig(
+                           name="adam", learning_rate=1e-3,
+                           schedule="reduce_on_plateau"))
+    params, state = us.init(cfg, torch.Generator().manual_seed(0))
+    params = cp.set_trainable(cp.to_device(params, "cuda"), frozen=())
+    live = {"state": cp.to_device(state, "cuda")}
+    opt = build_optimizer(tcfg.optimizer, params)
+    train_step, _ = tc.make_steps(cfg, mel_cfg, tcfg, opt)
+    ds = SyntheticClassification(num_samples=64, num_classes=10, seed=5)
+    batch = batch_to_device(next(ds.batcher(64).train_epochs(epoch=0)),
+                            "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def step():
+        live["state"], _ = train_step(params, live["state"], batch, gen)
+
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        step()
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / 20
+    _build.reset_stats()
+    step()
+    torch.cuda.synchronize()
+    stats = _launches()
+    require(stats["log_mel"][0] == 1, f"one K3 launch per classifier step: "
+            f"{stats['log_mel']}")
+    _require_launched(stats, ("log_mel",), "phase 24")
+    def k3_kernels(events):
+        return [us_ for name, us_ in events if "mel_kernel" in name]
+
+    events, wall = profiled_window(step, 10,
+                                   lambda ev: len(k3_kernels(ev)) == 10)
+    busy = sum(us_ for _, us_ in events) / 1e3
+    k3 = k3_kernels(events)
+    by_name = {}
+    for name, us_ in events:
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + us_)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    log("classifier step, kernels by device time (ms per step, launches "
+        "per step): " + "; ".join(f"{name[:60]} {t / 10 / 1e3:.4f} "
+                                  f"({n / 10:g})" for name, (n, t) in top))
+    out = {"classifier_step_ms_b64": step_ms,
+           "classifier_step_busy_ms_b64": busy / 10,
+           # against the event-timed step: the profiled window's wall
+           # time also holds the profiler's own host work
+           "classifier_step_idle_share_b64": 1.0 - busy / 10 / step_ms,
+           "classifier_step_kernels_b64": len(events) / 10,
+           "classifier_k3_device_ms_b64": sum(k3) / 10 / 1e3}
+    wav = batch["waveform"]
+    out["urbansound_b64_ms"] = time_ms(lambda: mel.log_mel(wav, mel_cfg))
+    out["urbansound_b64_plain_ms"] = time_ms(
+        lambda: mel.log_mel_torch(wav, mel_cfg))
+    out["urbansound_b64_device_ms"] = device_ms(
+        lambda: mel.log_mel(wav, mel_cfg))
+    out["urbansound_b64_bound_ms"] = k3_bound(mel_cfg, mel, 64,
+                                              wav.shape[1])[0]
+    log(f"classifier train step (UrbanSound full width, bf16, batch 64, "
+        f"SpecAugment, dropout 0.1; {smi}): {step_ms:.3f} ms per step "
+        f"(CUDA events, mean of 20); device busy {busy / 10:.3f} ms per step "
+        f"over 10 profiled steps ({wall / 10:.3f} ms each under the "
+        f"profiler), idle share {out['classifier_step_idle_share_b64']:.3f} "
+        f"of the event-timed step, "
+        f"{len(events) / 10:g} kernels per step, K3 "
+        f"{out['classifier_k3_device_ms_b64']:.4f} ms of it; K3 alone at "
+        f"(64, 88200): per call {out['urbansound_b64_ms']:.4f} ms, plain "
+        f"{out['urbansound_b64_plain_ms']:.4f}, device "
+        f"{out['urbansound_b64_device_ms']:.4f}, bound "
+        f"{out['urbansound_b64_bound_ms']:.4f}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1988,6 +2440,19 @@ def main() -> int:
         shutil.rmtree(io_root, ignore_errors=True)
     log(f"model I/O times ({smi[0]}): {json.dumps(io_times)}")
 
+    # 22. the classifier at the test widths, card vs CPU (4 s clips and 3 s
+    # clips zero-padded to 4 s); K3 on zero-padded clips against its bound
+    check_small_classifier(torch, _build, mel)
+    k3_padded = check_k3_padded(
+        torch, mel, torch.Generator(device="cuda").manual_seed(22), smi[0])
+
+    # 23. the classifier's training path at full width through the CLI,
+    # then a rerun that resumes
+    classifier_launches = check_classifier_cli(torch, _build, smi[0])
+
+    # 24. the classifier's steady-state train step at batch 64
+    classifier_times = time_classifier_step(torch, _build, mel, smi[0])
+
     kernels = []
     for name in SERVING:
         t4, t16 = times[4][name], times[16][name]
@@ -2002,6 +2467,14 @@ def main() -> int:
         # segment evaluation with int4 cross K/V (K1's int4 mode, K2's
         # timestamp mode), the reference's threshold
         entry["launches_eval_int4"] = evals[("int4", 2.4)]["launches"][name]
+        if name == "log_mel":
+            # the classifier: phase 23's first run, phase 24's step; K3 on
+            # zero-padded clips, held to K3_TOL + pair_error_bound
+            entry["launches_classifier"] = classifier_launches
+            entry.update(classifier_times)
+            entry["max_abs_err_padded"] = k3_padded[0]
+            entry["padded_share_of_bound"] = k3_padded[1]
+            entry["max_abs_err_padded_3s"] = k3_padded[2]
         if name == "decode_cross_attention":
             entry["max_abs_err"] = max(err[name], err_int4)
             entry["max_abs_err_int4"] = err_int4

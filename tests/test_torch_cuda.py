@@ -469,6 +469,118 @@ def test_k3_every_block_size_gives_the_same_bits(cuda, cfg):
         assert torch.equal(out, outs[0]), f
 
 
+@pytest.mark.parametrize("signal", ["noise", "sine"])
+@pytest.mark.parametrize("length", [66150, 512 * 128 + 1, 512 * 128 + 6,
+                                    512 * 129 + 3, 512 * 40, 30000])
+def test_k3_urbansound_padded_clips_match_plain(cuda, signal, length):
+    """Clips zero-padded to 4 s, as UrbanSoundLocalSource pads them: a
+    silent frame paired with a loud one carries the loud one's rounding,
+    which log(mel + 1e-9) makes relative (mel_cuda.pair_error_bound)."""
+    cfg = MelConfig.urbansound()
+    g = _gen(length)
+    wav = torch.zeros((8, 88200), device=cuda)
+    t = torch.arange(length, device=cuda) / cfg.sample_rate
+    noise = torch.randn((8, length), generator=g, device=cuda)
+    wav[:, :length] = (0.3 * noise if signal == "noise" else
+                       0.5 * torch.sin(2 * math.pi * 440 * t) + 0.05 * noise)
+    got = mel.log_mel(wav, cfg)
+    assert torch.equal(got, mel.log_mel(wav, cfg))
+    want = mel.log_mel_torch(wav, cfg)
+    power = mel.log_mel_torch(wav, cfg.replace(log_mode="none"))
+    from audio_transformers_tpu_torch.ops import mel_cuda as mc
+    bound = mc.pair_error_bound(wav, cfg, power)
+    err = (got - want).abs().double()
+    assert (err <= K3_TOL + bound).all(), (err - bound).max().item()
+
+
+_US_SMALL = dict(n_mels=64, num_classes=10, conv_dim=32, encoder_dim=32,
+                 num_encoder_blocks=2, num_heads=4, dropout=0.0,
+                 cnn_dims=(32, 48))
+
+
+@pytest.mark.parametrize("seconds", [4.0, 3.0])
+def test_classifier_step_on_cuda_matches_cpu(cuda, seconds, monkeypatch):
+    """3 train steps and one eval at the test widths in float32, the card
+    (K3) against the CPU (plain versions); 3 s clips zero-padded to 4 s as
+    the local source pads them. Losses within 1e-4 relative. The first
+    step against a CPU step fed the card's features (K3's own rounding is
+    held by the K3 tests): each leaf's gradient within 1e-4 * max(1, max
+    |g|), a leaf whose CPU gradient is rounding (under 1e-6 of the
+    largest; the exact gradient is 0 for the conv biases before
+    BatchNorm and the key biases) rounding on the card too; the params
+    after that Adam step within 1e-6 where the CPU gradient exceeds its
+    tolerance, else within 2 lr; the BN state within 1e-6 + 1e-5 |x|."""
+    from audio_transformers_tpu_torch.core.config import (OptimizerConfig,
+                                                          TrainConfig,
+                                                          UrbanSoundConfig)
+    from audio_transformers_tpu_torch.data.synthetic import \
+        SyntheticClassification
+    from audio_transformers_tpu_torch.models.urbansound import model as us
+    from audio_transformers_tpu_torch.train import classifier as tc
+    from audio_transformers_tpu_torch.train.common import batch_to_device
+    from audio_transformers_tpu_torch.train.optim import build_optimizer
+    cfg, mel_cfg = UrbanSoundConfig(**_US_SMALL), MelConfig.urbansound()
+    # the eval loss takes in the running means, which took in the conv
+    # biases' rounding-driven Adam steps (lr either way): a small lr keeps
+    # that drift under the losses' tolerance
+    lr = 1e-4
+    tcfg = TrainConfig(batch_size=8, compute_dtype="float32",
+                       optimizer=OptimizerConfig(name="adam",
+                                                 learning_rate=lr))
+    ds = SyntheticClassification(num_samples=8, num_classes=10, seed=3)
+    batch = next(ds.batcher(8).train_epochs(epoch=0))
+    keep = int(seconds * 22050)
+    batch["waveform"][:, keep:] = 0.0
+    params0, state0 = us.init(cfg, torch.Generator().manual_seed(0))
+
+    def host(tree):
+        return {p: t.detach().cpu() for p, t in cp.leaves_with_path(tree)}
+
+    def run(dev, steps):
+        params = cp.set_trainable(cp.map_tensors(
+            params0, lambda t: t.to(dev).clone()), frozen=())
+        state = cp.map_tensors(state0, lambda t: t.to(dev).clone())
+        opt = build_optimizer(tcfg.optimizer, params)
+        train_step, eval_step = tc.make_steps(cfg, mel_cfg, tcfg, opt)
+        b = batch_to_device(batch, dev)
+        before = _build.STATS["log_mel"].launches
+        losses, first = [], None
+        for _ in range(steps):
+            state, m = train_step(params, state, b)
+            losses.append(m["loss"].item())
+            if first is None:
+                first = ({p: t.grad.cpu()
+                          for p, t in cp.leaves_with_path(params)},
+                         host(params), host(state))
+        ev = {k: v.item() for k, v in eval_step(params, state, b).items()}
+        assert (_build.STATS["log_mel"].launches - before
+                == (steps + 1 if dev.type == "cuda" else 0))
+        return losses, ev, first
+
+    gl, ge, (gg, gp, gs) = run(cuda, 3)
+    cl, ce, _ = run(torch.device("cpu"), 3)
+    np.testing.assert_allclose(gl, cl, rtol=1e-4)
+    np.testing.assert_allclose(ge["loss_sum"], ce["loss_sum"], rtol=1e-4)
+    assert ge["count"] == ce["count"] == 8
+
+    features = mel.log_mel(batch_to_device(batch, cuda)["waveform"],
+                           mel_cfg).cpu()
+    monkeypatch.setattr(tc, "log_mel", lambda wav, c: features)
+    _, _, (wg, wp, ws) = run(torch.device("cpu"), 1)
+    floor = 1e-6 * max(w.abs().max().item() for w in wg.values())
+    for path, w in wg.items():
+        moved = (gp[path] - wp[path]).abs()
+        assert moved.max() <= 2 * lr, path
+        if w.abs().max() <= floor:
+            assert gg[path].abs().max() <= floor, path
+            continue
+        tol = 1e-4 * max(1.0, w.abs().max().item())
+        assert (gg[path] - w).abs().max() <= tol, path
+        assert moved[w.abs() > tol].max() <= 1e-6, path
+    for path, w in ws.items():
+        assert ((gs[path] - w).abs() <= 1e-6 + 1e-5 * w.abs()).all(), path
+
+
 def test_k3_rejects_what_it_cannot_take(cuda):
     wav = torch.zeros((1, 4000), device=cuda)
     for bad in (MelConfig.whisper().replace(n_fft=401),

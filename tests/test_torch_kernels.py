@@ -470,6 +470,88 @@ def test_k3_fft_plan_matches_rfft(n_fft):
                                atol=1e-5 * np.abs(want).max())
 
 
+def _pair_spectra(frames, n_fft):
+    """The kernel's spectra of frames (n_fft, 2P) float32, paired (2p,
+    2p + 1) into one complex signal and split by conjugate symmetry."""
+    z = (frames[:, 0::2] + 1j * frames[:, 1::2]).astype(np.complex64)
+    zz = _fft_emulated(z, n_fft)
+    k = np.arange(n_fft // 2 + 1)
+    zk, zm = zz[k], zz[(-k) % n_fft]
+    out = np.empty((len(k), frames.shape[1]), np.complex64)
+    out[:, 0::2] = 0.5 * (zk + np.conj(zm))
+    out[:, 1::2] = (zk - np.conj(zm)) / 2j
+    return out
+
+
+def _k3_emulated(wav, cfg):
+    """K3's log_eps features of wav (B, n) as the kernel computes them:
+    frames in float32, the pair FFT, the power, the filterbank, the log."""
+    padded = mel.prepare_waveform(torch.from_numpy(wav), cfg).numpy()
+    t = (padded.shape[1] - cfg.n_fft) // cfg.hop_length + 1
+    win = mel.hann_window(cfg.n_fft).astype(np.float32)
+    fb = mel.mel_filter_bank(cfg).astype(np.float32)
+    out = []
+    for row in padded:
+        frames = np.stack([row[i * cfg.hop_length:][:cfg.n_fft] * win
+                           for i in range(t)]
+                          + [np.zeros(cfg.n_fft, np.float32)] * (t % 2), 1)
+        spec = _pair_spectra(frames, cfg.n_fft)[:, :t]
+        power = (spec.real ** 2 + spec.imag ** 2).astype(np.float32)
+        out.append(np.log(power.T @ fb + np.float32(mc.LOG_EPS)))
+    return np.stack(out)
+
+
+def test_k3_fft_error_unit_covers_the_emulated_kernel():
+    """Each bin of the pair FFT errs by well under FFT_ERR * u * log2(N) *
+    ||pair||_2, loud and quiet frames side by side included."""
+    rng = np.random.default_rng(7)
+    n = 1024
+    frames = (0.3 * rng.standard_normal((n, 32))).astype(np.float32)
+    frames *= mel.hann_window(n)[:, None].astype(np.float32)
+    frames[:, 1::4] *= 1e-4
+    frames[:, 2::4] = 0.0
+    got = _pair_spectra(frames, n)
+    want = np.fft.rfft(frames.astype(np.float64), axis=0)
+    energy = (frames.astype(np.float64) ** 2).sum(0)
+    pair = np.repeat(energy[0::2] + energy[1::2], 2)
+    ratio = np.abs(got - want) / (2.0 ** -24 * np.log2(n) * np.sqrt(pair))
+    assert ratio.max() <= mc.FFT_ERR / 4, ratio.max()
+
+
+@pytest.mark.parametrize("signal", ["noise", "sine"])
+@pytest.mark.parametrize("length", [512 * 128 + 1, 512 * 128 + 6, 512 * 40,
+                                    66150, 512 * 129 + 3])
+def test_k3_padded_clips_stay_within_the_pair_bound(signal, length):
+    """UrbanSound's preset on clips zero-padded to 4 s: the emulated
+    kernel against the plain version within K3_TOL + pair_error_bound.
+    The lengths put the last frame with signal, or the first silent one,
+    at either place of its pair."""
+    cfg = MelConfig.urbansound()
+    rng = np.random.default_rng(length)
+    wav = np.zeros((3, 88200), np.float32)
+    t = np.arange(length) / cfg.sample_rate
+    wav[:, :length] = (0.3 * rng.standard_normal((3, length))
+                       if signal == "noise" else
+                       0.5 * np.sin(2 * np.pi * 440 * t)
+                       + 0.05 * rng.standard_normal((3, length)))
+    got = _k3_emulated(wav, cfg)
+    plain = mel.log_mel_torch(torch.from_numpy(wav), cfg).numpy()
+    power = mel.log_mel_torch(torch.from_numpy(wav),
+                              cfg.replace(log_mode="none"))
+    bound = mc.pair_error_bound(torch.from_numpy(wav), cfg, power).numpy()
+    assert (np.abs(got - plain) <= K3_TOL + bound).all()
+    # away from the padding the bound stays near float32's own rounding
+    inside = bound[:, :length // cfg.hop_length - 2]
+    assert np.median(inside) < 1e-4 and inside.max() < 1e-3
+
+
+def test_k3_pair_bound_takes_log_eps_only():
+    cfg = MelConfig.whisper()
+    wav = torch.zeros((1, 4000))
+    with pytest.raises(ValueError):
+        mc.pair_error_bound(wav, cfg, torch.zeros((1, 26, 80)))
+
+
 @pytest.mark.parametrize("n_fft", [401, 2048, 512, 300])
 def test_k3_fft_plan_raises_for_what_it_cannot_factor(n_fft):
     with pytest.raises(ValueError):

@@ -51,6 +51,10 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__,
                                                port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+new = {"audio_transformers_tpu_torch." + m for m in (
+    "models.urbansound.model", "train.classifier", "cli.train_classifier",
+    "data.urbansound", "data.cache", "ops.specaugment", "train.common")}
+assert new <= set(names), sorted(new - set(names))
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")
 runpy.run_path("tests/test_torch_cuda.py", run_name="test_torch_cuda")
 leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
@@ -141,6 +145,29 @@ print("ok")
 """
 
 
+# the classifier's CLI at a small width on the CPU with the same packages
+# blocked: training, checkpoints, resume and the safetensors export
+_CLASSIFIER = _BLOCK + """
+import os, sys, tempfile
+import torch
+torch.set_num_threads(1)   # tiny tensors, beside other test processes
+from audio_transformers_tpu_torch.cli import train_classifier
+from audio_transformers_tpu_torch.utils.safetensors import load_file
+out = tempfile.mkdtemp()
+args = ["--device", "cpu", "--dataset", "synthetic", "--limit_samples", "10",
+        "--batch_size", "4", "--conv_dim", "16", "--encoder_dim", "16",
+        "--num_encoder_blocks", "1", "--num_heads", "2", "--compute_dtype",
+        "float32", "--num_workers", "0", "--spec_augment", "--output_dir", out]
+train_classifier.main(args + ["--epochs", "1"])
+res = train_classifier.main(args + ["--epochs", "2"])
+assert [r["epoch"] for r in res["history"]] == [2], res["history"]
+sd = load_file(os.path.join(out, "best_model.safetensors"))
+assert sd["position_embeddings"].shape == (1000, 16)
+assert "conv_module.bn1.running_var" in sd
+print("ok")
+"""
+
+
 def test_port_imports_nothing_of_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
@@ -154,6 +181,13 @@ def test_evaluation_stands_alone():
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.split() == ["metrics.txt", "predictions.txt",
                                   "segment_evaluation.txt"]
+
+
+def test_classifier_stands_alone():
+    out = subprocess.run([sys.executable, "-c", _CLASSIFIER], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-1] == "ok"
 
 
 def test_model_io_stands_alone():
@@ -367,8 +401,58 @@ def _self_test(**kw):
     return ppipe.self_test(duration=1.0, **kw)
 
 
+_US = pcfg.UrbanSoundConfig(num_classes=4, conv_dim=16, encoder_dim=16,
+                           num_encoder_blocks=1, num_heads=2, dropout=0.0,
+                           cnn_dims=(16,))
+
+
+class _OneThread:
+    """One intra-op thread while the classifier's tiny steps run beside
+    other test processes."""
+
+    def __enter__(self):
+        self.n = torch.get_num_threads()
+        torch.set_num_threads(1)
+
+    def __exit__(self, *exc):
+        torch.set_num_threads(self.n)
+
+
+def _train_classifier(**kw):
+    from audio_transformers_tpu_torch.data.synthetic import \
+        SyntheticClassification
+    from audio_transformers_tpu_torch.train.classifier import \
+        train_classifier
+    ds = SyntheticClassification(num_samples=8, num_classes=4, duration=0.5)
+    tcfg = pcfg.TrainConfig(batch_size=4, num_epochs=1,
+                            compute_dtype="float32",
+                            optimizer=pcfg.OptimizerConfig(name="adam"))
+    with _OneThread():
+        return train_classifier(_US, pcfg.MelConfig.urbansound(), tcfg,
+                                ds.batcher(4), ds.batcher(4), **kw)
+
+
+def _cli_train_classifier(**kw):
+    import tempfile
+
+    from audio_transformers_tpu_torch.cli import train_classifier
+    args = ["--dataset", "synthetic", "--limit_samples", "8",
+            "--batch_size", "4", "--epochs", "1", "--conv_dim", "16",
+            "--encoder_dim", "16", "--num_encoder_blocks", "1",
+            "--num_heads", "2", "--compute_dtype", "float32",
+            "--num_workers", "0", "--output_dir", tempfile.mkdtemp()]
+    if "device" in kw:
+        args += ["--device", kw["device"]]
+    with _OneThread():
+        return train_classifier.main(args)
+
+
 ENTRY_POINTS = {"pipeline": _pipeline, "build_pipeline": _build,
-                "self_test": _self_test}
+                "self_test": _self_test,
+                "train_classifier": _train_classifier,
+                "cli.train_classifier": _cli_train_classifier}
+# the classifier's entry points return the trainer's results
+TRAINERS = ("train_classifier", "cli.train_classifier")
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
@@ -382,6 +466,12 @@ def test_entry_point_needs_a_card_by_default(entry):
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
 def test_entry_point_runs_on_the_cpu_when_asked(entry):
     got = ENTRY_POINTS[entry](device="cpu")
+    if entry in TRAINERS:
+        assert len(got["history"]) == 1
+        assert np.isfinite(got["history"][0]["train/loss"])
+        assert {t.device.type for _, t in cp.leaves_with_path(
+            got["params"])} == {"cpu"}
+        return
     if entry == "self_test":
         out = got
     else:

@@ -342,8 +342,11 @@ def test_train_whisper_emotion_matches_jax(jparams, tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    tcfg = TrainConfig(spec_augment=True)
-    with pytest.raises(NotImplementedError):
+    # SpecAugment is ported (tests/test_torch_urbansound.py); remat is not
+    tw.make_steps(TINY, MelConfig.whisper(), TrainConfig(spec_augment=True),
+                  None, "cpu")
+    tcfg = TrainConfig(remat=True)
+    with pytest.raises(NotImplementedError, match="remat"):
         tw.make_steps(TINY, MelConfig.whisper(), tcfg, None, "cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
