@@ -14,6 +14,12 @@ It writes <output_dir>/metrics.jsonl, the best epochs by val accuracy to
 resumes from it), then exports the best epoch to
 <output_dir>/best_model.safetensors with the reference's torch keys and,
 with --hf_repo_id, uploads <output_dir> (with HF_ACCESS set).
+
+Data parallelism: torchrun starts one process per card, and each trains
+on its rows of every global batch of --batch_size (rank 0 writes):
+
+  torchrun --nproc_per_node 4 -m \
+      audio_transformers_tpu_torch.cli.train_classifier --batch_size 256
 """
 
 from __future__ import annotations
@@ -64,19 +70,27 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
 
+    from audio_transformers_tpu_torch.parallel import distributed
+    distributed.initialize_if_multihost(device=args.device)
+    try:
+        return _train(args, distributed.process_device(args.device),
+                      distributed.process_index() == 0)
+    finally:
+        distributed.shutdown()
+
+
+def _train(args, device, writer: bool):
     from audio_transformers_tpu_torch.cli.common import \
         build_classifier_batchers
     from audio_transformers_tpu_torch.core.config import (MelConfig,
                                                           OptimizerConfig,
                                                           TrainConfig,
                                                           UrbanSoundConfig)
-    from audio_transformers_tpu_torch.core.params import resolve_device
     from audio_transformers_tpu_torch.train.classifier import \
         train_classifier
     from audio_transformers_tpu_torch.utils.hub import (export_classifier,
                                                         push_to_hub)
 
-    device = resolve_device(args.device)
     model_cfg = UrbanSoundConfig(
         n_mels=args.n_mels, conv_dim=args.conv_dim,
         encoder_dim=args.encoder_dim,
@@ -98,6 +112,8 @@ def main(argv=None):
                            device=device, log_dir=args.output_dir,
                            wandb_project=args.wandb_project)
     print(f"best val accuracy: {out['best_val_accuracy']:.4f}")
+    if not writer:
+        return out
 
     export_path = f"{args.output_dir}/best_model.safetensors"
     export_classifier(out["best_params"], out["best_state"], export_path)

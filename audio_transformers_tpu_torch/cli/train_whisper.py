@@ -14,6 +14,12 @@ dataset); --hf_repo_id exports the best epoch as an HF directory to
 <output_dir>/hf_export and uploads it (with HF_ACCESS set). Rerunning
 with the same --output_dir resumes from its resume/ directory.
 --spec_augment masks the mel features in each train step.
+
+Data parallelism: torchrun starts one process per card, and each trains
+on its rows of every global batch of --batch_size (rank 0 writes):
+
+  torchrun --nproc_per_node 4 -m \
+      audio_transformers_tpu_torch.cli.train_whisper --batch_size 32
 """
 
 from __future__ import annotations
@@ -58,6 +64,16 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
 
+    from audio_transformers_tpu_torch.parallel import distributed
+    distributed.initialize_if_multihost(device=args.device)
+    try:
+        return _train(args, distributed.process_device(args.device),
+                      distributed.process_index() == 0)
+    finally:
+        distributed.shutdown()
+
+
+def _train(args, device, writer: bool):
     from audio_transformers_tpu_torch.cli.common import (
         build_expresso_splits, get_tokenizer)
     from audio_transformers_tpu_torch.core.config import (
@@ -112,16 +128,15 @@ def main(argv=None):
                                   schedule="linear_warmup_decay",
                                   warmup_fraction=0.1))
 
+    batchers = [ds.batcher(args.batch_size, num_workers=args.num_workers)
+                for ds in (train_ds, val_ds)]
     out = train_whisper_emotion(
-        cfg, mel_cfg, train_cfg,
-        train_ds.batcher(args.batch_size, num_workers=args.num_workers),
-        val_ds.batcher(args.batch_size, num_workers=args.num_workers),
-        device=args.device, init_params=init_params,
-        style_to_idx=style_to_idx, output_dir=args.output_dir,
-        wandb_project=args.wandb_project)
+        cfg, mel_cfg, train_cfg, *batchers, device=device,
+        init_params=init_params, style_to_idx=style_to_idx,
+        output_dir=args.output_dir, wandb_project=args.wandb_project)
     print(f"best val loss: {out['best_val_loss']:.4f}")
 
-    if args.hf_repo_id:
+    if args.hf_repo_id and writer:
         from audio_transformers_tpu_torch.utils.hub import (export_hf_dir,
                                                             push_to_hub)
         hf_dir = export_hf_dir(out["best_params"], cfg,

@@ -19,9 +19,12 @@ Two tiers:
 Sample order is identical to the synchronous path in both tiers, so runs
 are bit-reproducible regardless of `num_workers`.
 
-The port's copy of the reference package's `data/loader.py`, without its
-multi-host sharding (`process_sharded`, which asks JAX for the process
-geometry): the port trains on one process.
+Data parallelism: each process takes its contiguous slice of every
+global batch (`parallel/distributed.py` owns the process geometry; one
+process takes the whole batch), so the same script feeds any number of
+processes. The port's copy of the reference package's `data/loader.py`
+as it runs with `process_sharded=True`: the port runs one process per
+device, so no process needs the whole global batch.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from collections import deque
 from typing import Callable, Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
+
+from audio_transformers_tpu_torch.parallel import distributed
 
 
 class Batcher:
@@ -47,6 +52,22 @@ class Batcher:
         self.prefetch_batches = max(prefetch_batches, 1)
 
     # ------------------------------------------------------------------
+    def _local_slice(self, idxs: Sequence[int],
+                     valid: int) -> Tuple[List[int], int]:
+        """This process's contiguous slice of a global batch and the count
+        of valid (non-wrap-padded) rows inside it (identity on a single
+        process)."""
+        n_proc = distributed.process_count()
+        if n_proc == 1:
+            return list(idxs), valid
+        if len(idxs) % n_proc:
+            raise ValueError(f"global batch {len(idxs)} not divisible by "
+                             f"{n_proc} processes")
+        per = len(idxs) // n_proc
+        pid = distributed.process_index()
+        local_valid = min(max(valid - pid * per, 0), per)
+        return list(idxs[pid * per: (pid + 1) * per]), local_valid
+
     def _assemble(self, samples: List[Dict[str, np.ndarray]],
                   valid: int) -> Dict[str, np.ndarray]:
         batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
@@ -65,6 +86,7 @@ class Batcher:
                      ) -> Iterator[Dict[str, np.ndarray]]:
         """Yield collated batches for (indices, valid_count) groups, with
         background prefetch when num_workers > 0. Order is preserved."""
+        groups = [self._local_slice(idxs, valid) for idxs, valid in groups]
         if self.num_workers <= 0:
             for idxs, valid in groups:
                 yield self._collate(idxs, valid)

@@ -46,11 +46,11 @@ def _norm_groups(dim: int) -> int:
 
 
 def _norm(cfg: UrbanSoundConfig, p: dict, s: dict, x: torch.Tensor, *,
-          training: bool) -> Tuple[torch.Tensor, dict]:
+          training: bool, group=None) -> Tuple[torch.Tensor, dict]:
     if cfg.norm_type == "group":
         return nn.group_norm(p, x, num_groups=_norm_groups(
             p["scale"].shape[0])), s
-    return nn.batch_norm(p, s, x, training=training)
+    return nn.batch_norm(p, s, x, training=training, group=group)
 
 
 def _encoder_block(p: dict, x: torch.Tensor, cfg: UrbanSoundConfig, *,
@@ -70,16 +70,21 @@ def _encoder_block(p: dict, x: torch.Tensor, cfg: UrbanSoundConfig, *,
 
 def apply(params: dict, state: dict, cfg: UrbanSoundConfig,
           mel: torch.Tensor, *, training: bool = False,
-          generator: Optional[torch.Generator] = None
+          generator: Optional[torch.Generator] = None, group=None
           ) -> Tuple[torch.Tensor, dict]:
     """mel (B, T, n_mels) log-mel features -> (logits (B, classes) in
-    mel's dtype, new state)."""
+    mel's dtype, new state). Under data parallelism `group` is the
+    process group whose ranks hold the global batch: BatchNorm's
+    training statistics are then the global batch's (`nn.batch_norm`),
+    and `generator` is a `nn.RowShard`."""
     pad = cfg.conv_kernel // 2
     x = nn.conv1d(params["conv1"], mel, padding=pad)
-    x, bn1 = _norm(cfg, params["bn1"], state["bn1"], x, training=training)
+    x, bn1 = _norm(cfg, params["bn1"], state["bn1"], x, training=training,
+                   group=group)
     x = nn.gelu(x)
     x = nn.conv1d(params["conv2"], x, stride=2, padding=pad)
-    x, bn2 = _norm(cfg, params["bn2"], state["bn2"], x, training=training)
+    x, bn2 = _norm(cfg, params["bn2"], state["bn2"], x, training=training,
+                   group=group)
     x = nn.gelu(x)
     if "proj" in params:
         x = nn.linear(params["proj"], x)
@@ -90,7 +95,7 @@ def apply(params: dict, state: dict, cfg: UrbanSoundConfig,
     cnn = []
     for p, s in zip(params["cnn"], state["cnn"]):
         x = nn.conv1d(p["conv"], x, padding=1)
-        x, ns = _norm(cfg, p["bn"], s, x, training=training)
+        x, ns = _norm(cfg, p["bn"], s, x, training=training, group=group)
         cnn.append(ns)
         x = nn.gelu(x)
     # the state's own key order, which checkpoints check on resume

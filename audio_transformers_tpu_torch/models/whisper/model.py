@@ -14,7 +14,9 @@ trees (`core.params`):
            precomputed encoder K/V, MLP) -> LN
 
 The full-sequence passes take attn_impl "xla" (matmul + float32 softmax)
-or "flash" (the flash-attention kernels, `ops/attention.py`). In the
+or "flash" (the flash-attention kernels, `ops/attention.py`), and remat
+(`torch.utils.checkpoint` over each block, as the reference's
+jax.checkpoint). In the
 decode step, self and cross K/V keep the reference's time-minor
 (B, H, hd, T) layout.
 Cross-attention runs through the hand-written kernel
@@ -29,10 +31,12 @@ each layer's buffers and advances the index.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from audio_transformers_tpu_torch.core.config import WhisperConfig
 from audio_transformers_tpu_torch.core.params import map_tensors
@@ -51,10 +55,13 @@ def _self_block(p: dict, x: Tensor, heads: int, impl: str) -> Tensor:
     return x + nn.linear(p["fc2"], nn.gelu(nn.linear(p["fc1"], h)))
 
 
-def _refuse_remat(remat: bool) -> None:
-    if remat:
-        raise NotImplementedError(
-            "remat (activation checkpointing) is not ported yet")
+def _blocks(block, remat: bool):
+    """`block`, or with remat `block` under activation checkpointing: its
+    activations are dropped after the forward and recomputed in the
+    backward (the reference's jax.checkpoint over each block)."""
+    if not remat:
+        return block
+    return functools.partial(checkpoint, block, use_reentrant=False)
 
 
 def encode(params: dict, cfg: WhisperConfig, mel: Tensor, *,
@@ -66,16 +73,17 @@ def encode(params: dict, cfg: WhisperConfig, mel: Tensor, *,
     attention kernels, forward and backward) or "auto", which is "xla"
     here as in the reference; the trainer resolves its own "auto". The
     positional table is frozen, as in the reference (stop_gradient): it
-    takes no gradient."""
-    _refuse_remat(remat)
+    takes no gradient. remat=True recomputes each block's activations in
+    the backward instead of keeping them."""
     if attn_impl == "auto":
         attn_impl = "xla"
     p = params["encoder"]
     x = nn.gelu(nn.conv1d(p["conv1"], mel, padding=1))
     x = nn.gelu(nn.conv1d(p["conv2"], x, stride=2, padding=1))
     x = x + p["pos"].detach()[None, : x.shape[1], :].to(x.dtype)
+    block = _blocks(_self_block, remat)
     for bp in p["blocks"]:
-        x = _self_block(bp, x, cfg.num_heads, attn_impl)
+        x = block(bp, x, cfg.num_heads, attn_impl)
     return nn.layer_norm(p["ln"], x)
 
 
@@ -98,15 +106,15 @@ def apply_decoder(params: dict, cfg: WhisperConfig, enc: Tensor,
     (B, T, d_model) in enc's dtype. Causal self-attention with no padding
     mask, non-causal cross-attention, as in the reference. Embedding plus
     positions are summed in the parameters' dtype, then cast. "auto" is
-    "xla", as in `encode`."""
-    _refuse_remat(remat)
+    "xla", as in `encode`; so is remat."""
     if attn_impl == "auto":
         attn_impl = "xla"
     p = params["decoder"]
     x = nn.embedding_lookup(p["embed"], tokens)
     x = (x + p["pos"][None, : tokens.shape[1], :]).to(enc.dtype)
+    block = _blocks(_cross_block, remat)
     for bp in p["blocks"]:
-        x = _cross_block(bp, x, enc, cfg.num_heads, attn_impl)
+        x = block(bp, x, enc, cfg.num_heads, attn_impl)
     return nn.layer_norm(p["ln"], x)
 
 

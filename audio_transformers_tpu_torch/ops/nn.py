@@ -14,6 +14,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 Tensor = torch.Tensor
@@ -49,18 +50,28 @@ def layer_norm(params: dict, x: Tensor, *, eps: float = 1e-5) -> Tensor:
 
 
 def batch_norm(params: dict, state: dict, x: Tensor, *, training: bool,
-               momentum: float = 0.1, eps: float = 1e-5) -> tuple:
+               momentum: float = 0.1, eps: float = 1e-5,
+               group=None) -> tuple:
     """x (B, T, C) normalised per channel over (B, T) in float32: torch
     BatchNorm1d's semantics, channels-last. In training the batch's
     statistics normalise and the running ones move by `momentum` (the
     variance with the unbiased n / (n - 1) correction); otherwise the
     running ones normalise. Returns (y in x's dtype, new state); the new
-    state holds no gradient."""
+    state holds no gradient.
+
+    With a process `group` (data parallelism) the batch is the global
+    one: the mean, then the mean of squared deviations from it, each
+    summed over the ranks by a differentiable all-reduce, so values and
+    gradients are those of one BatchNorm over every rank's rows (as
+    GSPMD computes the reference's over a sharded batch), and n counts
+    every rank's rows."""
     xf = x.float()
     if training:
-        mean = xf.mean(dim=(0, 1))
-        var = (xf - mean).square().mean(dim=(0, 1))
         n = x.shape[0] * x.shape[1]
+        if group is not None:
+            n *= dist.get_world_size(group)
+        mean = _group_sum(xf.sum(dim=(0, 1)), group) / n
+        var = _group_sum((xf - mean).square().sum(dim=(0, 1)), group) / n
         with torch.no_grad():
             unbiased = var * (n / max(n - 1, 1))
             new_state = {
@@ -73,6 +84,15 @@ def batch_norm(params: dict, state: dict, x: Tensor, *, training: bool,
     y = (xf - mean) * torch.rsqrt(var + eps)
     y = y * params["scale"].float() + params["bias"].float()
     return y.to(x.dtype), new_state
+
+
+def _group_sum(t: Tensor, group) -> Tensor:
+    """t summed over the ranks of `group` (autograd flows back through the
+    all-reduce); t itself without one."""
+    if group is None:
+        return t
+    from torch.distributed.nn.functional import all_reduce
+    return all_reduce(t, group=group)
 
 
 def group_norm(params: dict, x: Tensor, *, num_groups: int = 32,
@@ -88,16 +108,42 @@ def group_norm(params: dict, x: Tensor, *, num_groups: int = 32,
     return (y * params["scale"] + params["bias"]).to(x.dtype)
 
 
+class RowShard:
+    """A random stream split by rows over data-parallel ranks: each draw
+    is made from `generator` for the global batch (`world` times this
+    rank's rows) and this rank's contiguous rows are kept, so the values
+    a row gets do not depend on how many ranks share the batch."""
+
+    def __init__(self, generator: torch.Generator, rank: int, world: int):
+        self.generator, self.rank, self.world = generator, rank, world
+
+    @property
+    def device(self) -> torch.device:
+        return self.generator.device
+
+
+def draw(fn, generator, *args, shape, device) -> Tensor:
+    """fn(*args, shape, generator=, device=) (torch.rand, torch.randint)
+    from a torch.Generator, or this rank's rows of the global draw from a
+    `RowShard`; the batch is dim 0 of `shape`."""
+    if isinstance(generator, RowShard):
+        b = shape[0]
+        full = fn(*args, (b * generator.world, *shape[1:]),
+                  generator=generator.generator, device=device)
+        return full[generator.rank * b:(generator.rank + 1) * b]
+    return fn(*args, shape, generator=generator, device=device)
+
+
 def dropout(generator: Optional[torch.Generator], x: Tensor, rate: float,
             *, training: bool) -> Tensor:
     """Inverted dropout: each element kept with probability 1 - rate (a
     uniform draw from `generator` below it) and scaled by 1 / (1 - rate).
     The identity when not training, at rate 0 or without a generator. The
-    generator must live on x's device."""
+    generator (or `RowShard`) must live on x's device."""
     if not training or rate <= 0.0 or generator is None:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < 1.0 - rate
+    keep = draw(torch.rand, generator, shape=tuple(x.shape),
+                device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 

@@ -4,8 +4,10 @@ The reference's `audio_transformers_tpu/ops/specaugment.py` on PyTorch,
 split in two: `spec_augment_masks` draws the masks from a
 `torch.Generator` (the reference draws them from `jax.random`, which no
 generator reproduces), `apply_spec_augment` fills the masked cells with
-each sample's mean. Tests hold `apply_spec_augment` to the reference by
-feeding it the reference's own masks. Each mask is a few bands per
+each sample's mean. A `nn.RowShard` in place of the generator draws
+a data-parallel rank's rows of the global batch's masks. Tests hold
+`apply_spec_augment` to the reference by feeding it the reference's own
+masks. Each mask is a few bands per
 sample, a band starting anywhere on its axis and covering 0 to its
 maximum length in cells; the masks are independent per sample. The sizes
 are the reference's defaults, the only ones its trainers use.
@@ -17,20 +19,22 @@ from typing import Tuple
 
 import torch
 
+from audio_transformers_tpu_torch.ops.nn import draw
+
 NUM_TIME_MASKS = 2
 MAX_TIME_FRAC = 0.05      # of the frames, at least one frame
 NUM_FREQ_MASKS = 2
 MAX_FREQ = 8              # bins
 
 
-def _axis_mask(generator: torch.Generator, b: int, num_masks: int,
+def _axis_mask(generator, b: int, num_masks: int,
                size: int, max_len: int) -> torch.Tensor:
     """(b, size) bool: the union of `num_masks` bands per row."""
     device = generator.device
-    starts = torch.randint(0, size, (b, num_masks), generator=generator,
-                           device=device)
-    lens = torch.randint(0, max_len + 1, (b, num_masks), generator=generator,
-                         device=device)
+    starts = draw(torch.randint, generator, 0, size, shape=(b, num_masks),
+                  device=device)
+    lens = draw(torch.randint, generator, 0, max_len + 1,
+                shape=(b, num_masks), device=device)
     pos = torch.arange(size, device=device)[None, None, :]
     m = (pos >= starts[:, :, None]) & (pos < (starts + lens)[:, :, None])
     return m.any(dim=1)

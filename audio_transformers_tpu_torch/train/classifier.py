@@ -1,7 +1,7 @@
 """UrbanSound classifier training: Adam, ReduceLROnPlateau, cross-entropy.
 
-The reference's `audio_transformers_tpu/train/classifier.py` on PyTorch,
-on one device. The step computes the log-mel features from the waveform
+The reference's `audio_transformers_tpu/train/classifier.py` on PyTorch.
+The step computes the log-mel features from the waveform
 (the CUDA kernel on the card), casts them to `compute_dtype`, masks them
 with SpecAugment when configured, runs the classifier in training mode
 and takes a float32 cross-entropy; Adam updates the float32 parameters in
@@ -19,8 +19,17 @@ draws of an uninterrupted one. The draws themselves are not
 With a checkpoint directory a run keeps the reference's two: <dir> holds
 the best epochs by val accuracy (params and state), <dir>-resume the last
 epoch's params, state, Adam state and the plateau scheduler's position,
-from which a rerun resumes at the next epoch. Data parallelism (a
-`mesh_shape` of more than one device) is not ported and raises.
+from which a rerun resumes at the next epoch.
+
+Data parallelism (`parallel/`): in a process group, `mesh_shape`'s
+"data" axis spans the ranks. Each rank takes its rows of every global
+batch (`data.loader.Batcher`), the parameters and state start
+from rank 0's, BatchNorm normalises with the global batch's statistics,
+dropout and SpecAugment draw for the global batch and keep this rank's
+rows (`common.rank_generator`), the gradients are averaged before Adam
+steps, and the eval sums and train metrics are reduced over the ranks,
+so a step equals one process's step on the global batch up to sum
+order; rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -41,10 +50,18 @@ from audio_transformers_tpu_torch.core.params import resolve_device
 from audio_transformers_tpu_torch.models.urbansound import model as us
 from audio_transformers_tpu_torch.ops import specaugment as sa
 from audio_transformers_tpu_torch.ops.mel import log_mel
+from audio_transformers_tpu_torch.parallel.mesh import (Mesh,
+                                                        all_reduce_sum,
+                                                        average_gradients,
+                                                        build_mesh,
+                                                        replicated)
 from audio_transformers_tpu_torch.train.common import (DTYPES,
                                                        batch_to_device,
                                                        epoch_generator,
                                                        host_copy,
+                                                       mean_over_ranks,
+                                                       metric_logger,
+                                                       rank_generator,
                                                        restore_into)
 from audio_transformers_tpu_torch.train.optim import (PlateauScheduler,
                                                       build_optimizer,
@@ -52,14 +69,17 @@ from audio_transformers_tpu_torch.train.optim import (PlateauScheduler,
 
 
 def make_steps(model_cfg: UrbanSoundConfig, mel_cfg: MelConfig,
-               train_cfg: TrainConfig, opt):
+               train_cfg: TrainConfig, opt, mesh: Mesh = Mesh(1, 0)):
     """(train_step, eval_step).
 
     train_step(params, state, batch, generator) updates `params` in place
     through `opt` and returns (new state, metrics as device scalars);
     `generator` (on the batch's device) draws the SpecAugment masks, then
     the dropout masks; None draws neither. eval_step(params, state, batch)
-    returns the sums `loss_sum`, `correct` and `count`."""
+    returns the sums `loss_sum`, `correct` and `count`. On a `mesh` of
+    several ranks train_step takes this rank's rows and a `nn.RowShard`
+    generator, normalises BatchNorm over the global batch and averages
+    the gradients before Adam steps."""
     compute_dtype = DTYPES[train_cfg.compute_dtype]
 
     def forward(params, state, waveform, *, training, generator=None):
@@ -67,7 +87,7 @@ def make_steps(model_cfg: UrbanSoundConfig, mel_cfg: MelConfig,
         if train_cfg.spec_augment and training and generator is not None:
             mel = sa.spec_augment(generator, mel)
         return us.apply(params, state, model_cfg, mel, training=training,
-                        generator=generator)
+                        generator=generator, group=mesh.group)
 
     def train_step(params, state, batch, generator=None):
         logits, new_state = forward(params, state, batch["waveform"],
@@ -76,6 +96,7 @@ def make_steps(model_cfg: UrbanSoundConfig, mel_cfg: MelConfig,
         loss = F.cross_entropy(logits, batch["label"])
         opt.zero_grad()
         loss.backward()
+        average_gradients(opt.params, mesh)
         opt.step()
         acc = (logits.argmax(dim=-1) == batch["label"]).float().mean()
         return new_state, {"loss": loss.detach(), "accuracy": acc}
@@ -93,16 +114,17 @@ def make_steps(model_cfg: UrbanSoundConfig, mel_cfg: MelConfig,
     return train_step, eval_step
 
 
-def evaluate(eval_step, params, state, batcher, device) -> Dict[str, float]:
-    """{"loss", "accuracy"} over every valid row of the eval batches."""
+def evaluate(eval_step, params, state, batcher, device,
+             mesh: Mesh = Mesh(1, 0)) -> Dict[str, float]:
+    """{"loss", "accuracy"} over every valid row of the eval batches; on a
+    mesh of several ranks each rank evaluates its rows and the sums are
+    reduced over them."""
     keys = ("loss_sum", "correct", "count")
-    totals = None
+    totals = torch.zeros(len(keys), dtype=torch.float64, device=device)
     for batch in batcher.eval_batches():
         out = eval_step(params, state, batch_to_device(batch, device))
-        vec = torch.stack([out[k].double() for k in keys])
-        totals = vec if totals is None else totals + vec
-    sums = dict(zip(keys, totals.tolist() if totals is not None
-                    else [0.0] * len(keys)))
+        totals += torch.stack([out[k].double() for k in keys])
+    sums = dict(zip(keys, all_reduce_sum(totals, mesh).tolist()))
     n = max(sums["count"], 1.0)
     return {"loss": sums["loss_sum"] / n, "accuracy": sums["correct"] / n}
 
@@ -121,24 +143,27 @@ def train_classifier(model_cfg: UrbanSoundConfig, mel_cfg: MelConfig,
     from train_cfg.seed. Metrics go to <log_dir>/metrics.jsonl. Returns
     {"params", "state", "optimizer", "best_params", "best_state" (a host
     snapshot of the best-by-val-accuracy epoch), "history" (this run's
-    epochs), "best_val_accuracy"}."""
+    epochs), "best_val_accuracy"}.
+
+    In a process group (`parallel.distributed`) this runs on every rank,
+    each with its own device and batchers
+    (`build_mesh(train_cfg.mesh_shape)` must cover the group)."""
     device = resolve_device(device)
-    if any(n > 1 for _, n in train_cfg.mesh_shape):
-        raise NotImplementedError(
-            f"mesh_shape {train_cfg.mesh_shape}: the port trains on one "
-            "device (data parallelism is not ported)")
+    mesh = build_mesh(train_cfg.mesh_shape)
+    writer = mesh.rank == 0
     if init_params is None:
         init_params = us.init(model_cfg, torch.Generator().manual_seed(
             train_cfg.seed))
-    params = cp.set_trainable(cp.map_tensors(
+    params = cp.set_trainable(replicated(cp.map_tensors(
         init_params[0], lambda t: t.detach().to(device, torch.float32)
-        .clone()), frozen=())
-    state = cp.map_tensors(init_params[1],
-                           lambda t: t.detach().to(device).clone())
+        .clone()), mesh), frozen=())
+    state = replicated(cp.map_tensors(
+        init_params[1], lambda t: t.detach().to(device).clone()), mesh)
     opt = build_optimizer(train_cfg.optimizer, params,
                           total_steps=train_batcher.steps_per_epoch
                           * train_cfg.num_epochs)
-    train_step, eval_step = make_steps(model_cfg, mel_cfg, train_cfg, opt)
+    train_step, eval_step = make_steps(model_cfg, mel_cfg, train_cfg, opt,
+                                       mesh)
     plateau = (PlateauScheduler(train_cfg.optimizer)
                if train_cfg.optimizer.schedule == "reduce_on_plateau"
                else None)
@@ -149,9 +174,9 @@ def train_classifier(model_cfg: UrbanSoundConfig, mel_cfg: MelConfig,
                             best_mode="max")
         resume_ckpt = Checkpointer(train_cfg.checkpoint_dir + "-resume",
                                    max_to_keep=1)
-    log = logger or MetricLogger(log_dir=log_dir, wandb_project=wandb_project,
-                                 config={"model": model_cfg.to_json(),
-                                         "train": train_cfg.to_json()})
+    log = logger or metric_logger(
+        mesh, log_dir=log_dir, wandb_project=wandb_project,
+        config={"model": model_cfg.to_json(), "train": train_cfg.to_json()})
 
     best_val_acc, history, best_tree = -1.0, [], None
     step = start_epoch = 0
@@ -174,7 +199,8 @@ def train_classifier(model_cfg: UrbanSoundConfig, mel_cfg: MelConfig,
 
     timer = StepTimer()
     for epoch in range(start_epoch, train_cfg.num_epochs):
-        generator = epoch_generator(train_cfg.seed, epoch, device)
+        generator = rank_generator(
+            epoch_generator(train_cfg.seed, epoch, device), mesh)
         # metrics stay on the device until the epoch ends: one sync
         timer.reset()
         sums = None
@@ -193,10 +219,10 @@ def train_classifier(model_cfg: UrbanSoundConfig, mel_cfg: MelConfig,
             step += 1
             timer.tick(items=train_cfg.batch_size)
         rates = timer.rates(device)   # train only: before the eval
-        acc = ({k: v.item() for k, v in sums.items()} if sums is not None
+        acc = (mean_over_ranks(sums, mesh) if sums is not None
                else {"loss": 0.0, "accuracy": 0.0})
 
-        val = evaluate(eval_step, params, state, val_batcher, device)
+        val = evaluate(eval_step, params, state, val_batcher, device, mesh)
         if plateau is not None:
             lr = plateau.step(val["loss"])
             set_learning_rate(opt, lr)
@@ -220,14 +246,14 @@ def train_classifier(model_cfg: UrbanSoundConfig, mel_cfg: MelConfig,
             # one host copy, shared with the checkpoint write below
             best_tree = {"params": host_copy(params),
                          "state": host_copy(state)}
-            if ckpt is not None:
+            if ckpt is not None and writer:
                 ckpt.save(step, best_tree,
                           metadata={"model_cfg": model_cfg.to_json(),
                                     "mel_cfg": mel_cfg.to_json(),
                                     "epoch": epoch + 1,
                                     "val_accuracy": val["accuracy"]},
                           best_metric=val["accuracy"])
-        if resume_ckpt is not None:
+        if resume_ckpt is not None and writer:
             resume_ckpt.save(
                 step, {"params": params, "state": state,
                        "opt_state": opt.state_dict()},

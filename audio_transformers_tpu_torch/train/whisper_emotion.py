@@ -23,9 +23,18 @@ position), from which a rerun with the same output directory resumes.
 With `spec_augment` the mel features are masked after the cast
 (`ops/specaugment.py`), the masks drawn from one generator per epoch
 seeded from (seed + 1, epoch) (`epoch_generator`), as the reference folds
-the epoch into the key of seed + 1; the draws are not `jax.random`'s. Not
-ported yet, and raising NotImplementedError: activation checkpointing
-(remat).
+the epoch into the key of seed + 1; the draws are not `jax.random`'s.
+With `remat` the encoder and decoder blocks recompute their activations
+in the backward (`models/whisper/model.py`).
+
+Data parallelism (`parallel/`): in a process group, `mesh_shape`'s
+"data" axis spans the ranks. Each rank takes its rows of every global
+batch (`data.loader.Batcher`), the parameters start from rank
+0's, the transcription loss divides by the global token count (see
+`dual_loss`), the gradients are averaged before AdamW clips and steps,
+SpecAugment's masks are drawn for the global batch and sliced
+(`common.rank_generator`), and the eval sums and train metrics are
+reduced over the ranks; rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import time
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from audio_transformers_tpu_torch.core.config import (
@@ -43,14 +53,22 @@ from audio_transformers_tpu_torch.core import params as cp
 from audio_transformers_tpu_torch.core.checkpoint import (Checkpointer,
                                                           save_label_map)
 from audio_transformers_tpu_torch.core.params import resolve_device
-from audio_transformers_tpu_torch.core.metrics import MetricLogger, StepTimer
+from audio_transformers_tpu_torch.core.metrics import StepTimer
 from audio_transformers_tpu_torch.models.whisper import emotion as emo
 from audio_transformers_tpu_torch.ops import specaugment as sa
 from audio_transformers_tpu_torch.ops.mel import log_mel
+from audio_transformers_tpu_torch.parallel.mesh import (Mesh,
+                                                        all_reduce_sum,
+                                                        average_gradients,
+                                                        build_mesh,
+                                                        replicated)
 from audio_transformers_tpu_torch.train.common import (DTYPES,
                                                        batch_to_device,
                                                        epoch_generator,
                                                        host_copy,
+                                                       mean_over_ranks,
+                                                       metric_logger,
+                                                       rank_generator,
                                                        restore_into)
 from audio_transformers_tpu_torch.train.optim import (build_optimizer,
                                                       frozen_leaf_decay_mask)
@@ -58,10 +76,18 @@ from audio_transformers_tpu_torch.train.optim import (build_optimizer,
 def dual_loss(logits: torch.Tensor, emotion_logits: torch.Tensor,
               labels: torch.Tensor, emotion_labels: torch.Tensor, *,
               pad_token_id: int, emotion_weight: float,
-              mask_mode: str = "pad") -> Dict[str, torch.Tensor]:
+              mask_mode: str = "pad", group=None) -> Dict[str, torch.Tensor]:
     """labels (B, T+1) are full sequences: teacher forcing feeds
     labels[:, :-1] and targets labels[:, 1:]; `logits` (B, T, V) belong to
-    the shifted inputs. Cross-entropies run on float32 logits."""
+    the shifted inputs. Cross-entropies run on float32 logits.
+
+    With a process `group` of R ranks, each holding its rows of the
+    global batch, the transcription loss is the reference's token mean
+    over the global batch: this rank's token sum over N / R, N the
+    global token count (all-reduced, not differentiated). Averaging the
+    ranks' losses, or their gradients, then gives the global batch's,
+    however the tokens fall on the ranks; each rank's own token mean
+    would not."""
     targets = labels[:, 1:].long()
     mask = targets != pad_token_id
     if mask_mode == "keep_first_eos":
@@ -73,7 +99,13 @@ def dual_loss(logits: torch.Tensor, emotion_logits: torch.Tensor,
     per_tok = F.cross_entropy(logits.float().transpose(1, 2), targets,
                               reduction="none")
     m = mask.float()
-    transcription = (per_tok * m).sum() / m.sum().clamp_min(1.0)
+    if group is None:
+        count = m.sum().clamp_min(1.0)
+    else:
+        count = m.sum().detach()
+        dist.all_reduce(count, group=group)
+        count = count.clamp_min(1.0) / dist.get_world_size(group)
+    transcription = (per_tok * m).sum() / count
     emotion = F.cross_entropy(emotion_logits.float(), emotion_labels.long())
     acc = (emotion_logits.argmax(dim=-1) == emotion_labels).float().mean()
     return {"loss": transcription + emotion_weight * emotion,
@@ -82,7 +114,7 @@ def dual_loss(logits: torch.Tensor, emotion_logits: torch.Tensor,
 
 
 def make_steps(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
-               train_cfg: TrainConfig, opt, device):
+               train_cfg: TrainConfig, opt, device, mesh: Mesh = Mesh(1, 0)):
     """(train_step, eval_step) over the parameter tree they are given.
 
     train_step(params, batch, generator=None) updates the parameters in
@@ -94,9 +126,13 @@ def make_steps(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
 
     attn_impl "auto" trains with the flash kernels on CUDA and with plain
     attention on the CPU; eval runs plain attention unless attn_impl names
-    one (the reference resolves eval's "auto" to XLA)."""
-    if train_cfg.remat:
-        raise NotImplementedError("remat is not ported yet")
+    one (the reference resolves eval's "auto" to XLA). train_cfg.remat
+    recomputes the blocks' activations in the backward of train_step.
+
+    On a `mesh` of several ranks (`parallel.mesh`), train_step takes
+    this rank's rows, a `nn.RowShard` generator, and averages the
+    gradients over the ranks before the optimizer steps; its metrics are
+    this rank's share (`common.mean_over_ranks` averages them)."""
     device = torch.device(device)
     compute_dtype = DTYPES[train_cfg.compute_dtype]
     pad = cfg.whisper.pad_token_id
@@ -107,21 +143,24 @@ def make_steps(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
         else "xla"
     mel_precision = "high" if compute_dtype == torch.bfloat16 else "highest"
 
-    def forward(params, batch, attn, generator=None):
+    def forward(params, batch, attn, generator=None, remat=False):
         mel = log_mel(batch["waveform"], mel_cfg,
                       precision=mel_precision).to(compute_dtype)
         if train_cfg.spec_augment and generator is not None:
             mel = sa.spec_augment(generator, mel)
         return emo.forward_train(params, cfg, mel, batch["labels"][:, :-1],
-                                 attn_impl=attn)
+                                 remat=remat, attn_impl=attn)
 
     def train_step(params, batch, generator=None):
-        logits, emotion_logits = forward(params, batch, attn_impl, generator)
+        logits, emotion_logits = forward(params, batch, attn_impl, generator,
+                                         train_cfg.remat)
         out = dual_loss(logits, emotion_logits, batch["labels"],
                         batch["emotion_labels"], pad_token_id=pad,
-                        emotion_weight=train_cfg.emotion_weight)
+                        emotion_weight=train_cfg.emotion_weight,
+                        group=mesh.group)
         opt.zero_grad()
         out["loss"].backward()
+        average_gradients(opt.params, mesh)
         opt.step()
         return {k: v.detach() for k, v in out.items()}
 
@@ -147,16 +186,17 @@ def make_steps(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
 
 
 def evaluate(eval_step, params, batcher, device, *,
-             emotion_weight: float = 0.5) -> Dict[str, float]:
+             emotion_weight: float = 0.5,
+             mesh: Mesh = Mesh(1, 0)) -> Dict[str, float]:
+    """The eval metrics over every valid row; on a mesh of several ranks
+    each rank evaluates its rows and the sums are reduced over them."""
     keys = ("transcription_sum", "token_count", "emotion_sum", "correct",
             "count")
-    totals = None
+    totals = torch.zeros(len(keys), dtype=torch.float64, device=device)
     for batch in batcher.eval_batches():
         out = eval_step(params, batch_to_device(batch, device))
-        vec = torch.stack([out[k].double() for k in keys])
-        totals = vec if totals is None else totals + vec
-    sums = dict(zip(keys, totals.tolist() if totals is not None
-                    else [0.0] * len(keys)))
+        totals += torch.stack([out[k].double() for k in keys])
+    sums = dict(zip(keys, all_reduce_sum(totals, mesh).tolist()))
     transcription = sums["transcription_sum"] / max(sums["token_count"], 1.0)
     emotion = sums["emotion_sum"] / max(sums["count"], 1.0)
     return {"loss": transcription + emotion_weight * emotion,
@@ -183,32 +223,41 @@ def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
     next epoch (a run that has nothing left to train returns the best
     checkpoint's params). Returns {"params", "best_params" (a host
     snapshot of the best-by-val-loss epoch), "optimizer", "history" (this
-    run's epochs), "best_val_loss"}."""
+    run's epochs), "best_val_loss"}.
+
+    In a process group (`parallel.distributed`) this runs on every rank,
+    each with its own device and batchers
+    (`build_mesh(train_cfg.mesh_shape)` must cover the group)."""
     device = resolve_device(device)
+    mesh = build_mesh(train_cfg.mesh_shape)
+    writer = mesh.rank == 0
     total_steps = train_batcher.steps_per_epoch * train_cfg.num_epochs
     if init_params is None:
         init_params = emo.init(cfg, torch.Generator().manual_seed(
             train_cfg.seed))
-    params = cp.set_trainable(cp.map_tensors(
-        init_params, lambda t: t.detach().to(device, torch.float32).clone()))
+    params = cp.set_trainable(replicated(cp.map_tensors(
+        init_params, lambda t: t.detach().to(device, torch.float32).clone()),
+        mesh))
     opt = build_optimizer(train_cfg.optimizer, params,
                           total_steps=total_steps,
                           decay_mask=frozen_leaf_decay_mask)
-    train_step, eval_step = make_steps(cfg, mel_cfg, train_cfg, opt, device)
+    train_step, eval_step = make_steps(cfg, mel_cfg, train_cfg, opt, device,
+                                       mesh)
 
     ckpt = resume_ckpt = None
     if output_dir:
-        os.makedirs(output_dir, exist_ok=True)
-        if style_to_idx:
-            save_label_map(os.path.join(output_dir, "style_to_id.txt"),
-                           style_to_idx)
+        if writer:
+            os.makedirs(output_dir, exist_ok=True)
+            if style_to_idx:
+                save_label_map(os.path.join(output_dir, "style_to_id.txt"),
+                               style_to_idx)
         ckpt = Checkpointer(os.path.join(output_dir, "checkpoints"),
                             max_to_keep=train_cfg.keep_checkpoints,
                             best_mode="min")
         resume_ckpt = Checkpointer(os.path.join(output_dir, "resume"),
                                    max_to_keep=1)
-    log = MetricLogger(
-        log_dir=output_dir, wandb_project=wandb_project,
+    log = metric_logger(
+        mesh, log_dir=output_dir, wandb_project=wandb_project,
         config={"cfg": cfg.to_json(), "train": train_cfg.to_json()})
 
     best_val_loss = float("inf")
@@ -231,7 +280,8 @@ def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
         timer.reset()
         sums = None
         n = 0
-        generator = (epoch_generator(train_cfg.seed + 1, epoch, device)
+        generator = (rank_generator(epoch_generator(train_cfg.seed + 1,
+                                                    epoch, device), mesh)
                      if train_cfg.spec_augment else None)
         batches = train_batcher.train_epochs(epoch=epoch)
         while True:
@@ -247,10 +297,9 @@ def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
             timer.tick(items=train_cfg.batch_size)
 
         rates = timer.rates(device)
-        acc = ({k: v.item() for k, v in sums.items()} if sums is not None
-               else {})
+        acc = mean_over_ranks(sums, mesh) if sums is not None else {}
         val = evaluate(eval_step, params, val_batcher, device,
-                       emotion_weight=train_cfg.emotion_weight)
+                       emotion_weight=train_cfg.emotion_weight, mesh=mesh)
         row = {
             "epoch": epoch + 1,
             **{f"train/{k}": v / max(n, 1) for k, v in acc.items()},
@@ -263,7 +312,7 @@ def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
         if val["loss"] < best_val_loss:
             best_val_loss = val["loss"]
             best_params = host_copy(params)
-            if ckpt is not None:
+            if ckpt is not None and writer:
                 ckpt.save(step, {"params": best_params},
                           metadata={"cfg": cfg.to_json(),
                                     "mel_cfg": mel_cfg.to_json(),
@@ -271,7 +320,7 @@ def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
                                     "val_loss": val["loss"],
                                     "style_to_idx": style_to_idx},
                           best_metric=val["loss"])
-        if resume_ckpt is not None:
+        if resume_ckpt is not None and writer:
             resume_ckpt.save(step, {"params": params,
                                     "opt_state": opt.state_dict()},
                              metadata={"epoch": epoch + 1,

@@ -134,7 +134,29 @@ each raising on failure:
      bf16, SpecAugment, dropout 0.1: the mean of 20 steps by CUDA events,
      device busy, idle share, K3's device time and the kernels per step
      from torch.profiler over 10 steps; K3 alone at (64, 88200) against
-     its plain version and its bound.
+     its plain version and its bound;
+  25. remat: the whisper-tiny train step (bf16, flash) with remat off and
+     on, two turns each: K4's launches in a step (K4a 12 off, 24 on; K4b
+     and K4c 12), the first step's loss and gradients at batch 16
+     (bit-equal expected, cuDNN deterministic for the phase), and the
+     peak memory (torch.cuda.max_memory_allocated) and ms per step at
+     batch 16 and at REMAT_BATCH;
+  26. data parallelism at world size 1: this process joins an NCCL group
+     of one by passing a coordinator, and both trainers (the test config
+     and the classifier's test widths, bf16, SpecAugment, 2 epochs) run
+     through every collective: parameters and BatchNorm state bit-equal
+     to the run without a group, K3 and K4 launched, no plain version on
+     CUDA; the batch-16 whisper-tiny step with and without the group in
+     turns, and the gradient all-reduce alone;
+  27. data parallelism with two ranks on the one card: two processes in a
+     gloo group (NCCL refuses two ranks on one device) run the cases of
+     tests/torch_dp_worker.py in float32 (the classifier with BatchNorm,
+     dropout and SpecAugment, and without draws; whisper with label
+     lengths that give the ranks unequal token counts; evaluate; one
+     epoch of each trainer), held to the same cases in one process on
+     the whole batch; every rank launches K3, and K4 for whisper;
+  28. `entry.entry()`'s forward (whisper-tiny, emotion head, log-mel) on
+     the card: K3 launched, finite outputs of the expected shapes.
 
 Tolerances (kernel vs plain version, on the card):
   K1 decode_cross_attention: 1e-5 abs in float32 (sum order only);
@@ -165,6 +187,14 @@ Tolerances (kernel vs plain version, on the card):
      max|cpu|); parameters and BatchNorm running statistics within 2 *
      steps * lr (Adam; the conv biases before BatchNorm get only
      sum-order noise as gradient, and the running means take them in).
+  Remat against no remat (phase 25): bit-equal; failing that, the loss
+     within 1e-4 relative and every gradient within 1e-3 * max(1, max|g|)
+     (phase 8's bound; only the recompute's sum order could differ).
+  Two ranks against one (phase 27, float32): the CPU tests' tolerances:
+     loss 1e-5 relative, gradients 1e-4 * max(1, max|g|) per leaf, BN
+     state 1e-6, eval metrics 1e-6 relative, an epoch's history 1e-3
+     relative (Adam turns rounding-level gradients into steps of lr);
+     the ranks' gradients bit-equal.
   One train step, card vs CPU (test config, float32): losses within 1e-4
      relative; gradients within 1e-3 * max(1, max|cpu|) per leaf (log-mel
      features differ by up to 2e-4); updated parameters within 2 * lr + 1e-6
@@ -191,7 +221,14 @@ library call of the same function: the STFT alone); K3's
 `launches_classifier` (phase 23's first run), `classifier_*_b64` (phase
 24's step: ms, busy ms, idle share, kernels, K3's device ms),
 `urbansound_b64_*` (K3 alone at the classifier's batch) and its errors on
-zero-padded clips (`max_abs_err_padded`, `padded_share_of_bound`).
+zero-padded clips (`max_abs_err_padded`, `padded_share_of_bound`), and
+its launches under data parallelism (`launches_dp_world1`, phase 26's
+run; `launches_dp_two_ranks`, each rank's in phase 27's first case)
+beside phase 26's step times and `average_gradients` time (in a group
+of one: the flatten, divide and copy back; NCCL over one rank launches
+no kernel) and phase 27's errors;
+every K4 entry's `launches_remat` (phase 25's step with remat), and
+K4a's `remat_*` fields (phase 25's peak MiB and ms per step).
 The last line is {"ok": true, "device": {...}}. Nothing of JAX is
 imported.
 """
@@ -297,25 +334,34 @@ def time_ms(fn, reps=20, warmup=3):
 
 def kernel_events(fn, reps=20):
     """[(name, us)] of the kernels `reps` calls of fn() launched, from
-    torch.profiler after a warm-up call. A trace that holds no kernel at
-    all (the profiler has returned one now and then) is taken again, up
-    to PROFILE_TRIES times, and said so."""
+    torch.profiler after a warm-up call and one more call inside the
+    profiler's warm-up cycle, which it does not record (the records of
+    the first kernels after the profiler starts go missing now and then:
+    19 of 20 one-kernel calls, as `profiled_window` found). A trace that
+    holds no kernel, or a count that is no whole multiple of `reps`, is
+    taken again, up to PROFILE_TRIES times, and said so."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
     for attempt in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            prof.step()
         events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
-        if events:
+        if events and len(events) % reps == 0:
             return events
-        log(f"the profiler recorded no kernel (trace {attempt + 1} of "
-            f"{PROFILE_TRIES})")
+        log(f"the profiler's trace {attempt + 1} of {PROFILE_TRIES} holds "
+            f"{len(events)} kernels for {reps} calls")
     return events
 
 
@@ -2251,6 +2297,360 @@ def time_classifier_step(torch, _build, mel, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 25-28: remat, data parallelism, the entry point
+# ---------------------------------------------------------------------------
+
+# phase 25's second batch, from scripts/probe_remat_memory.py's sweep on
+# the H100 (PERF.md §6): remat takes the step's peak from about 17300 to
+# about 7750 MiB
+REMAT_BATCH = 128
+K4 = TRAINING[1:]
+
+
+def _whisper_step(torch, port, params0, batch_size, **kw):
+    """(step, params): a fresh whisper-tiny train step (bf16, flash,
+    AdamW at 3e-5) over a copy of params0; `kw` goes to TrainConfig and
+    a `mesh` to make_steps."""
+    from audio_transformers_tpu_torch.train import whisper_emotion as tw
+    from audio_transformers_tpu_torch.train.optim import build_optimizer
+    mesh = kw.pop("mesh", None)
+    cfg = port.EmotionWhisperConfig(num_emotion_classes=9)
+    tcfg = port.TrainConfig(batch_size=batch_size, compute_dtype="bfloat16",
+                            attn_impl="flash",
+                            optimizer=port.OptimizerConfig(
+                                name="adamw", learning_rate=3e-5), **kw)
+    params = _fresh(torch, params0, "cuda")
+    opt = build_optimizer(tcfg.optimizer, params)
+    args = (mesh,) if mesh is not None else ()
+    step, _ = tw.make_steps(cfg, port.MelConfig.whisper(), tcfg, opt, "cuda",
+                            *args)
+    return step, params, opt
+
+
+def _timed_steps(torch, step, params, batch, reps=5):
+    """(mean ms, peak MiB) of `reps` steps after one warm-up step."""
+    step(params, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(params, batch)
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) / reps * 1e3,
+            torch.cuda.max_memory_allocated() / 2**20)
+
+
+def check_remat(torch, port, _build, params0, smi):
+    """Phase 25: the whisper-tiny train step (bf16, flash) with remat off
+    and on. At batch 16 the first step's loss and gradients (bit-equal
+    expected: the recompute repeats deterministic kernels, with cuDNN
+    held to its deterministic algorithms for the phase) and K4's launches
+    (K4a 12 off, 24 on; K4b, K4c 12); at batch 16 and REMAT_BATCH the
+    peak memory and ms per step over 5 steps after a warm-up, off and on
+    in turns. Returns (K4's launches in a step with remat, the K4a
+    entry's remat fields)."""
+    from audio_transformers_tpu_torch.core import params as cp
+    from audio_transformers_tpu_torch.train.common import batch_to_device
+    w = port.WhisperConfig()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    res, first = {}, {}
+    try:
+        for b in (16, REMAT_BATCH):
+            batch = batch_to_device(train_batch(b, 30.0, w, 9, seed=13),
+                                    "cuda")
+            for remat in (False, True, True, False):
+                step, params, _ = _whisper_step(torch, port, params0, b,
+                                                remat=remat)
+                torch.cuda.synchronize()
+                _build.reset_stats()
+                m = step(params, batch)
+                torch.cuda.synchronize()
+                launches = {k: _build.STATS[k].launches for k in K4}
+                require(all(s.plain_cuda_calls == 0
+                            for s in _build.STATS.values()),
+                        "phase 25: a plain version ran on CUDA")
+                want = {"flash_attention_fwd": 24 if remat else 12,
+                        "flash_attention_bwd_dq": 12,
+                        "flash_attention_bwd_dkv": 12}
+                require(launches == want, f"phase 25 (batch {b}, remat "
+                        f"{remat}): K4 launches {launches}, want {want}")
+                if b == 16 and remat:
+                    remat_launches = launches
+                if b == 16 and remat not in first:
+                    # on the host, out of the peaks measured below
+                    first[remat] = (m["loss"].item(), {
+                        p: t.grad.detach().cpu()
+                        for p, t in cp.leaves_with_path(params)
+                        if t.grad is not None})
+                ms, peak = _timed_steps(torch, step, params, batch)
+                res.setdefault((b, remat), []).append((ms, peak))
+                del step, params, m
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (loss0, g0), (loss1, g1) = first[False], first[True]
+    require(set(g0) == set(g1), "phase 25: the same leaves take gradients")
+    bit_equal = loss0 == loss1 and all(torch.equal(g0[p], g1[p])
+                                       for p in g0)
+    worst = max(float((g0[p].float() - g1[p].float()).abs().max()
+                      / max(1.0, float(g0[p].abs().max()))) for p in g0)
+    if not bit_equal:
+        # the bound of phase 8's float32 step: log-mel differences carried
+        # through the step; here only the recompute's sum order can differ
+        require(abs(loss1 - loss0) <= 1e-4 * abs(loss0),
+                f"phase 25: remat loss {loss1} against {loss0}")
+        require(worst <= 1e-3, f"phase 25: remat gradients differ by "
+                f"{worst:.3e} of max(1, max |g|)")
+    summary = {}
+    for (b, remat), runs in res.items():
+        tag = f"b{b}_{'on' if remat else 'off'}"
+        summary[f"remat_ms_{tag}"] = statistics.mean(r[0] for r in runs)
+        summary[f"remat_peak_mib_{tag}"] = max(r[1] for r in runs)
+    log(f"remat ({smi}; whisper-tiny train step, bf16, flash, 30 s clips): "
+        f"first step at batch 16 {'bit-equal' if bit_equal else 'NOT bit-equal'}"
+        f" (loss {loss0!r} / {loss1!r}, largest gradient difference "
+        f"{worst:.3e} of max(1, max |g|)); K4a 12 -> 24 launches a step, "
+        f"K4b, K4c 12; ms per step and peak MiB over 5 steps, two turns "
+        f"each: {json.dumps({f'{b}/{r}': v for (b, r), v in res.items()})}")
+    summary["remat_bit_equal"] = bit_equal
+    summary["remat_max_grad_diff"] = worst
+    return remat_launches, summary
+
+
+def _small_trainer_runs(torch, port, init):
+    """The whisper trainer at the test config and the classifier trainer
+    at the test widths, 2 epochs each on the card in bf16 with SpecAugment
+    (dropout 0.1 for the classifier): their final parameters (and the
+    classifier's BatchNorm state) on the host."""
+    from audio_transformers_tpu_torch.core import params as cp
+    from audio_transformers_tpu_torch.core.config import UrbanSoundConfig
+    from audio_transformers_tpu_torch.data.synthetic import (
+        SyntheticClassification, SyntheticSeq2Seq)
+    from audio_transformers_tpu_torch.train.classifier import \
+        train_classifier
+    from audio_transformers_tpu_torch.train.whisper_emotion import \
+        train_whisper_emotion
+    cfg = port.EmotionWhisperConfig(whisper=port.WhisperConfig.test(),
+                                    num_emotion_classes=4)
+    w = cfg.whisper
+    dur = 2 * w.max_source_positions * 160 / 16000
+
+    def seq(seed):
+        return SyntheticSeq2Seq(num_samples=8, num_classes=4,
+                                vocab_size=w.vocab_size, max_label_len=12,
+                                duration=dur, seed=seed,
+                                bos_id=w.decoder_start_token_id,
+                                eos_id=w.eos_token_id, pad_id=w.pad_token_id)
+
+    wh = train_whisper_emotion(
+        cfg, port.MelConfig.whisper(),
+        port.TrainConfig(batch_size=4, num_epochs=2, spec_augment=True,
+                         compute_dtype="bfloat16",
+                         optimizer=port.OptimizerConfig(
+                             name="adamw", learning_rate=1e-3,
+                             schedule="linear_warmup_decay")),
+        seq(1).batcher(4), seq(2).batcher(4), device="cuda",
+        init_params=init(cfg, torch.Generator().manual_seed(0)))
+    ucfg = UrbanSoundConfig(n_mels=64, num_classes=4, conv_dim=32,
+                            encoder_dim=32, num_encoder_blocks=2,
+                            num_heads=4, dropout=0.1, cnn_dims=(32, 48))
+    cls = train_classifier(
+        ucfg, port.MelConfig.urbansound(),
+        port.TrainConfig(batch_size=8, num_epochs=2, spec_augment=True,
+                         compute_dtype="bfloat16",
+                         optimizer=port.OptimizerConfig(
+                             name="adam", learning_rate=1e-3,
+                             schedule="constant")),
+        SyntheticClassification(16, 4, seed=3).batcher(8),
+        SyntheticClassification(8, 4, seed=4).batcher(8), device="cuda")
+    return {"whisper": dict(cp.leaves_with_path(wh["params"])),
+            "classifier": dict(cp.leaves_with_path(cls["params"])),
+            "classifier_state": dict(cp.leaves_with_path(cls["state"]))}
+
+
+def _trees_equal(torch, a, b):
+    """(bit-equal, largest difference) over every tree of two runs."""
+    equal, worst = True, 0.0
+    for name in a:
+        for p, t in a[name].items():
+            t, u = t.detach(), b[name][p].detach()
+            equal &= torch.equal(t, u)
+            worst = max(worst, float((t.float() - u.float()).abs().max()))
+    return equal, worst
+
+
+def check_dp_one_rank(torch, port, _build, init, params0, smi):
+    """Phase 26: both trainers through the data-parallel path at world
+    size 1: the process joins an NCCL group of one by passing a
+    coordinator, so every collective runs (parameter broadcast, gradient
+    all-reduce, BatchNorm's global statistics, the token count, the eval
+    sums) and must change no bit: the final parameters and BatchNorm
+    state equal the run without a group, K3 and K4 launched, no plain
+    version on CUDA (cuDNN deterministic for the phase). Then the
+    whisper-tiny train step at batch 16 with and without the group, in
+    turns, and `average_gradients` alone (CUDA events, and its device time
+    by torch.profiler). In a group of one that times the flatten, the
+    divide and the copy back: NCCL over one rank launches no kernel.
+    scripts/dp_multicard.py times the all-reduce itself over four cards."""
+    import torch.distributed as dist
+    from audio_transformers_tpu_torch.parallel import distributed
+    from audio_transformers_tpu_torch.parallel.launch import free_port
+    from audio_transformers_tpu_torch.parallel.mesh import (
+        Mesh, average_gradients, build_mesh)
+    from audio_transformers_tpu_torch.train.common import batch_to_device
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = _small_trainer_runs(torch, port, init)
+        require(distributed.initialize_if_multihost(
+            coordinator=f"127.0.0.1:{free_port()}", num_processes=1,
+            process_id=0, device="cuda"), "phase 26 joins a group of one")
+        try:
+            mesh = build_mesh()
+            require(dist.get_backend() == "nccl" and mesh.size == 1
+                    and mesh.group is not None,
+                    f"phase 26: an NCCL group of one, got "
+                    f"{dist.get_backend()} {mesh}")
+            torch.cuda.synchronize()
+            _build.reset_stats()
+            dp = _small_trainer_runs(torch, port, init)
+            torch.cuda.synchronize()
+            stats = {k: (s.launches, s.plain_cuda_calls)
+                     for k, s in _build.STATS.items()}
+            _require_launched(stats, TRAINING, "phase 26 (DP, NCCL, 1 rank)")
+            equal, worst = _trees_equal(torch, dp, ref)
+            if not equal:
+                again = _small_trainer_runs(torch, port, init)
+                control = _trees_equal(torch, again, ref)
+                require(False, f"phase 26: DP at world size 1 differs from "
+                        f"the run without a group by {worst:.3e} (two runs "
+                        f"without a group: bit-equal {control[0]}, "
+                        f"{control[1]:.3e})")
+            # the whisper-tiny step at batch 16, with and without the group
+            w = port.WhisperConfig()
+            batch = batch_to_device(train_batch(16, 30.0, w, 9, seed=13),
+                                    "cuda")
+            times = {}
+            for with_group in (False, True, True, False, False, True):
+                step, params, opt = _whisper_step(
+                    torch, port, params0, 16,
+                    mesh=mesh if with_group else Mesh(1, 0))
+                times.setdefault(with_group, []).append(
+                    _timed_steps(torch, step, params, batch)[0])
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            for _ in range(3):
+                average_gradients(opt.params, mesh)
+            start.record()
+            for _ in range(20):
+                average_gradients(opt.params, mesh)
+            end.record()
+            torch.cuda.synchronize()
+            flatten_ms = start.elapsed_time(end) / 20
+            flatten_dev = device_profile(
+                lambda: average_gradients(opt.params, mesh))
+            n_grad = sum(p.numel() for p in opt.params)
+            del step, params, opt
+            torch.cuda.empty_cache()
+        finally:
+            distributed.shutdown()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    off, on = (statistics.mean(times[k]) for k in (False, True))
+    log(f"DP at world size 1 ({smi}; NCCL, a group of one): both trainers' "
+        f"parameters and BN state bit-equal to the run without a group; "
+        f"launches / plain-on-CUDA {stats}; whisper-tiny step at batch 16 "
+        f"ms without / with the group {times[False]} / {times[True]} "
+        f"(means {off:.3f} / {on:.3f}); average_gradients over one rank "
+        f"(the flatten, divide and copy back of {n_grad} floats) "
+        f"{flatten_ms:.4f} ms by CUDA events ({flatten_ms / on:.2%} of the "
+        f"step), device {flatten_dev[0]:.4f} ms in {flatten_dev[1]:.0f} "
+        f"kernels")
+    return {"launches_dp_world1": stats["log_mel"][0],
+            "dp_world1_step_ms": on, "dp_none_step_ms": off,
+            "dp_grad_flatten_ms": flatten_ms,
+            "dp_grad_flatten_device_ms": flatten_dev[0]}
+
+
+def check_dp_two_ranks(torch, smi):
+    """Phase 27: two processes on the one card in a gloo group (NCCL
+    refuses two ranks on one device; gloo reduces the CUDA tensors)
+    run the cases of tests/torch_dp_worker.py (the classifier at small
+    widths with BatchNorm, dropout and SpecAugment, and without draws;
+    whisper at the test config with label lengths that give the ranks
+    unequal token counts, with and without SpecAugment; each trainer's
+    evaluate and one epoch of each trainer), in float32, and are held to
+    the same cases run in this process on the whole batch with the CPU
+    tests' tolerances (`torch_dp_worker.hold`: loss 1e-5 relative,
+    gradients 1e-4 max(1, max |g|) per leaf, BN state 1e-6, eval metrics
+    1e-6 relative, an epoch's history 1e-3 relative; the ranks'
+    gradients bit-equal). Every rank launches K3 in every case and K4 in
+    the whisper cases; no plain version runs on CUDA."""
+    from audio_transformers_tpu_torch.parallel.launch import launch
+    tests_dir = os.path.join(HERE, "tests")
+    if tests_dir not in sys.path:
+        sys.path.insert(0, tests_dir)
+    import torch_dp_worker as worker
+    one = tempfile.mkdtemp(prefix="chip_smoke_dp1_")
+    two = tempfile.mkdtemp(prefix="chip_smoke_dp2_")
+    try:
+        worker.run(one, "cuda:0")
+        t0 = time.perf_counter()
+        launch("torch_dp_worker:run", 2, [two, "cuda:0", "gloo"],
+               timeout=300, env={"PYTHONPATH": tests_dir})
+        wall = time.perf_counter() - t0
+        a = torch.load(os.path.join(one, "rank0.pt"), weights_only=False)
+        ranks = [torch.load(os.path.join(two, f"rank{r}.pt"),
+                            weights_only=False) for r in (0, 1)]
+    finally:
+        shutil.rmtree(one, ignore_errors=True)
+        shutil.rmtree(two, ignore_errors=True)
+    try:
+        worst = worker.hold(a, ranks)
+    except AssertionError as e:
+        require(False, f"phase 27: {e}")
+    for r, res in enumerate(ranks):
+        for case in worst:
+            names = ("log_mel",) + (K4 if case.startswith("wh") else ())
+            _require_launched(res[case]["launches"], names,
+                              f"phase 27 {case}, rank {r}")
+    log(f"DP with two ranks on one card ({smi}; gloo on CUDA tensors, "
+        f"{wall:.1f} s for both ranks): every case within the CPU tests' "
+        f"tolerances of one rank on the whole batch: {json.dumps(worst)}; "
+        f"token counts per rank {ranks[0]['wh_sa']['tokens']} / "
+        f"{ranks[1]['wh_sa']['tokens']}")
+    return {"launches_dp_two_ranks": [r["cls_drop"]["launches"]["log_mel"][0]
+                                      for r in ranks],
+            "dp_two_ranks_err": worst}
+
+
+def check_entry(torch, _build):
+    """Phase 28: `entry.entry()`'s fn on the card: whisper-tiny with the
+    emotion head on 2 clips of 30 s (bf16), K3 launched once, no plain
+    version on CUDA, finite outputs of the expected shapes."""
+    from audio_transformers_tpu_torch.entry import entry
+    fn, args = entry()
+    torch.cuda.synchronize()
+    _build.reset_stats()
+    with torch.no_grad():
+        logits, emotion = fn(*args)
+    torch.cuda.synchronize()
+    stats = {k: (s.launches, s.plain_cuda_calls)
+             for k, s in _build.STATS.items()}
+    require(stats["log_mel"][0] == 1, f"entry(): K3 launches {stats}")
+    require(all(p == 0 for _, p in stats.values()),
+            "entry(): a plain version ran on CUDA")
+    require(tuple(logits.shape) == (2, 24, 51865)
+            and tuple(emotion.shape) == (2, 10)
+            and bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(emotion).all()),
+            "entry(): finite logits of the expected shapes")
+    log(f"entry() on the card: logits {tuple(logits.shape)}, emotion "
+        f"{tuple(emotion.shape)}, launches {stats}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2453,6 +2853,23 @@ def main() -> int:
     # 24. the classifier's steady-state train step at batch 64
     classifier_times = time_classifier_step(torch, _build, mel, smi[0])
 
+    # 25. remat: the whisper-tiny train step off and on
+    params = init(EmotionWhisperConfig(num_emotion_classes=9),
+                  torch.Generator().manual_seed(0))
+    remat_launches, remat = check_remat(torch, port_core, _build, params,
+                                        smi[0])
+
+    # 26. both trainers through the data-parallel path at world size 1
+    dp = check_dp_one_rank(torch, port_core, _build, init, params, smi[0])
+    del params
+    torch.cuda.empty_cache()
+
+    # 27. two ranks on the one card (gloo)
+    dp.update(check_dp_two_ranks(torch, smi[0]))
+
+    # 28. entry.entry()'s forward on the card
+    check_entry(torch, _build)
+
     kernels = []
     for name in SERVING:
         t4, t16 = times[4][name], times[16][name]
@@ -2475,6 +2892,8 @@ def main() -> int:
             entry["max_abs_err_padded"] = k3_padded[0]
             entry["padded_share_of_bound"] = k3_padded[1]
             entry["max_abs_err_padded_3s"] = k3_padded[2]
+            # data parallelism: phase 26's DP runs, phase 27's ranks
+            entry.update(dp)
         if name == "decode_cross_attention":
             entry["max_abs_err"] = max(err[name], err_int4)
             entry["max_abs_err_int4"] = err_int4
@@ -2482,9 +2901,13 @@ def main() -> int:
                           for k, v in times[b][f"{name}_int4"].items()})
         kernels.append(entry)
     for name in TRAINING[1:]:
+        # phase 25: launches per step with remat, and its memory and time
+        remat_fields = {"launches_remat": remat_launches[name]}
+        if name == "flash_attention_fwd":
+            remat_fields.update(remat)
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],
-                        "launches": train_launches[name],
+                        "launches": train_launches[name], **remat_fields,
                         "max_abs_err": err[name],
                         **k4_times["encoder"][name],
                         **{f"{shape}_{k}": v

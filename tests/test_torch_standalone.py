@@ -53,7 +53,9 @@ for name in names:
     importlib.import_module(name)
 new = {"audio_transformers_tpu_torch." + m for m in (
     "models.urbansound.model", "train.classifier", "cli.train_classifier",
-    "data.urbansound", "data.cache", "ops.specaugment", "train.common")}
+    "data.urbansound", "data.cache", "ops.specaugment", "train.common",
+    "parallel", "parallel.distributed", "parallel.mesh", "parallel.launch",
+    "entry", "serve.app")}
 assert new <= set(names), sorted(new - set(names))
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")
 runpy.run_path("tests/test_torch_cuda.py", run_name="test_torch_cuda")

@@ -99,11 +99,14 @@ def test_forward_train_matches_jax(jparams, batch, attn, pooling):
 
 
 def test_forward_train_rejects_remat(jparams, batch):
-    with pytest.raises(NotImplementedError):
-        emo.forward_train(cp.from_jax_params(jparams), TINY,
-                          torch.from_numpy(batch["mel"]),
-                          torch.from_numpy(batch["labels"][:, :-1]).long(),
-                          remat=True)
+    """remat is ported: forward_train takes it and gives remat=False's
+    outputs bit for bit (tests/test_torch_remat.py holds the gradients)."""
+    mel = torch.from_numpy(batch["mel"])
+    ids = torch.from_numpy(batch["labels"][:, :-1]).long()
+    params = cp.from_jax_params(jparams)
+    want = emo.forward_train(params, TINY, mel, ids)
+    got = emo.forward_train(params, TINY, mel, ids, remat=True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("mask_mode", ["pad", "keep_first_eos"])
@@ -342,12 +345,16 @@ def test_train_whisper_emotion_matches_jax(jparams, tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    # SpecAugment is ported (tests/test_torch_urbansound.py); remat is not
+    # SpecAugment and remat are ported; tensor parallelism is not
     tw.make_steps(TINY, MelConfig.whisper(), TrainConfig(spec_augment=True),
                   None, "cpu")
-    tcfg = TrainConfig(remat=True)
-    with pytest.raises(NotImplementedError, match="remat"):
-        tw.make_steps(TINY, MelConfig.whisper(), tcfg, None, "cpu")
+    tw.make_steps(TINY, MelConfig.whisper(), TrainConfig(remat=True), None,
+                  "cpu")
+    tcfg = TrainConfig(mesh_shape=(("data", -1), ("model", 2)))
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        tw.train_whisper_emotion(TINY, MelConfig.whisper(), tcfg,
+                                 _seq2seq(8, 1).batcher(8),
+                                 _seq2seq(8, 2).batcher(8), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tw.resolve_device("cuda")

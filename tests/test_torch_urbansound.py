@@ -665,8 +665,11 @@ def test_pos_reaches_neither_the_optimizer_nor_the_gradient(tmp_path):
 
 
 def test_trainer_refuses_more_than_one_device():
+    """A mesh of two devices in a process that joined no group of two is
+    refused, as the reference refuses a mesh larger than its devices (a
+    two-process group trains: tests/test_torch_parallel.py)."""
     ds_t, ds_v = _data()
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(ValueError, match="needs 2 processes, have 1"):
         tc.train_classifier(TINY, MEL, _tcfg(mesh_shape=(("data", 2),)),
                             ds_t.batcher(8), ds_v.batcher(8), device="cpu")
 
