@@ -23,6 +23,11 @@
 // Pass 2: one warp per row merges the tiles' partials (ties keep the
 // lower index; the sums merge as M + log sum_i s_i exp(m_i - M)) and
 // applies the timestamp force rule.
+// Vocab-shard mode (tensor parallelism): with `parts` set, the table and
+// masks are a shard whose first column is id `voff`; ids are compared and
+// reported global, and pass 2 writes each row's merged partials (float32
+// (B, 2), or (B, 6) in ts mode: m, mi, mts, its, sts, mtx, the ids as
+// floats) instead of a token, for the ranks to merge.
 
 #include <float.h>
 #include <limits.h>
@@ -61,7 +66,8 @@ greedy_pass1(const float* __restrict__ h, const float* __restrict__ table_t,
              const int8_t* __restrict__ ban, float penalty,
              const int* __restrict__ tlo, const int* __restrict__ thi,
              const int* __restrict__ tcap, int tb, int batch, int dim,
-             int vocab, float* __restrict__ pf, int* __restrict__ pi) {
+             int vocab, int voff, float* __restrict__ pf,
+             int* __restrict__ pi) {
   extern __shared__ float sm[];
   float* hs = sm;              // RB * dim
   float* lg = sm + RB * dim;   // RB * TILE
@@ -94,8 +100,8 @@ greedy_pass1(const float* __restrict__ h, const float* __restrict__ table_t,
     if (seen != nullptr && seen[at] != 0) l = l > 0.f ? l / penalty : l * penalty;
     if (ban != nullptr && ban[at] != 0) l = -FLT_MAX;
     if (TS) {
-      const int b = r0 + r;
-      if (v < tlo[b] || (v >= tb && v < thi[b]) || v > tcap[b]) l = -FLT_MAX;
+      const int b = r0 + r, g = voff + v;
+      if (g < tlo[b] || (g >= tb && g < thi[b]) || g > tcap[b]) l = -FLT_MAX;
     }
     lg[r * TILE + threadIdx.x] = l;
   }
@@ -108,7 +114,7 @@ greedy_pass1(const float* __restrict__ h, const float* __restrict__ table_t,
   int mi = INT_MAX, its = INT_MAX;
   for (int j = lane; j < TILE; j += 32) {
     const float x = row[j];
-    const int g = tile * TILE + j;
+    const int g = voff + tile * TILE + j;
     arg_merge(m, mi, x, g);
     if (TS) {
       if (g >= tb)
@@ -130,7 +136,7 @@ greedy_pass1(const float* __restrict__ h, const float* __restrict__ table_t,
   float sts = 0.f;
   if (TS && mts != -INFINITY) {
     for (int j = lane; j < TILE; j += 32)
-      if (tile * TILE + j >= tb) sts += expf(row[j] - mts);
+      if (voff + tile * TILE + j >= tb) sts += expf(row[j] - mts);
     sts = warp_sum(sts);
   }
   if (lane == 0) {
@@ -150,7 +156,8 @@ greedy_pass1(const float* __restrict__ h, const float* __restrict__ table_t,
 template <bool TS>
 __global__ void greedy_pass2(const float* __restrict__ pf,
                              const int* __restrict__ pi, int batch,
-                             int n_tiles, int* __restrict__ out) {
+                             int n_tiles, int* __restrict__ out,
+                             float* __restrict__ parts) {
   const int b = blockIdx.x, lane = threadIdx.x;
   const size_t plane = (size_t)batch * n_tiles;
   const size_t base = (size_t)b * n_tiles;
@@ -178,7 +185,17 @@ __global__ void greedy_pass2(const float* __restrict__ pf,
       mtx = fmaxf(mtx, __shfl_xor_sync(0xffffffffu, mtx, o));
     }
   }
-  if (lane == 0) {
+  if (lane == 0 && parts != nullptr) {
+    float* o = parts + (size_t)b * (TS ? 6 : 2);
+    o[0] = m;
+    o[1] = (float)mi;
+    if (TS) {
+      o[2] = mts;
+      o[3] = (float)its;
+      o[4] = ls;
+      o[5] = mtx;
+    }
+  } else if (lane == 0) {
     int tok = mi;
     if (TS) {
       const float lse = lm == -INFINITY ? -INFINITY : lm + logf(ls);
@@ -193,39 +210,45 @@ static int launch(const void* h, const void* table_t, const void* add,
                   const void* seen, const void* ban, float penalty,
                   const void* tlo, const void* thi, const void* tcap, int tb,
                   int batch, int dim, int vocab, void* pf, void* pi,
-                  void* out, cudaStream_t stream) {
+                  void* out, int voff, void* parts, cudaStream_t stream) {
   const int n_tiles = vocab / TILE;
   const size_t smem = sizeof(float) * (RB * dim + RB * TILE);
   dim3 grid(n_tiles, (batch + RB - 1) / RB);
   greedy_pass1<TS><<<grid, TILE, smem, stream>>>(
       (const float*)h, (const float*)table_t, (const float*)add,
       (const int8_t*)seen, (const int8_t*)ban, penalty, (const int*)tlo,
-      (const int*)thi, (const int*)tcap, tb, batch, dim, vocab, (float*)pf,
-      (int*)pi);
+      (const int*)thi, (const int*)tcap, tb, batch, dim, vocab, voff,
+      (float*)pf, (int*)pi);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   greedy_pass2<TS><<<batch, 32, 0, stream>>>((const float*)pf,
                                               (const int*)pi, batch,
-                                              n_tiles, (int*)out);
+                                              n_tiles, (int*)out,
+                                              (float*)parts);
   return (int)cudaGetLastError();
 }
 
 // float32 operands only (dtype kF32); seen, ban and the three ts bound
 // vectors may be null; ts mode is on when tlo is not null. vocab must be a
-// multiple of 256. Returns cudaGetLastError() after the launches.
+// multiple of 256. With `parts` set (the vocab-shard mode) out is unused
+// and parts receives B rows of 2 (6 in ts mode) float32 partials of the
+// shard whose first column is id voff. Returns cudaGetLastError() after
+// the launches.
 extern "C" int fused_greedy_step(const void* h, const void* table_t,
                                  const void* add, const void* seen,
                                  const void* ban, float penalty,
                                  const void* tlo, const void* thi,
                                  const void* tcap, int tb, int batch,
                                  int dim, int vocab, int dtype, void* pf,
-                                 void* pi, void* out, void* stream) {
+                                 void* pi, void* out, int voff, void* parts,
+                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype != kF32) return (int)cudaErrorInvalidValue;
   return tlo != nullptr
              ? launch<true>(h, table_t, add, seen, ban, penalty, tlo,
                              thi, tcap, tb, batch, dim, vocab, pf, pi, out,
-                             s)
+                             voff, parts, s)
              : launch<false>(h, table_t, add, seen, ban, penalty, tlo, thi,
-                             tcap, tb, batch, dim, vocab, pf, pi, out, s);
+                             tcap, tb, batch, dim, vocab, pf, pi, out, voff,
+                             parts, s);
 }

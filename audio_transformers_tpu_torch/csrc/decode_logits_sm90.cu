@@ -52,6 +52,13 @@
 //   fixed order, applies the force rule and writes the tokens, in the same
 //   launch. Ties keep the lower index everywhere, and the merge order does
 //   not depend on timing, so two launches give equal bits.
+// - Vocab-shard mode (tensor parallelism): with `parts` set, the table and
+//   the masks are a shard whose first column is id `voff`; every id the
+//   kernel compares or reports is global (voff + column), and the merging
+//   block writes each row's merged partials to `parts` instead of a token
+//   (float32 (B, 2), or (B, 6) in ts mode: m, mi, mts, its, sts, mtx, the
+//   ids as floats, INT_MAX for an empty region). The ranks merge the
+//   shards' partials (ops/decode_logits.py `merge_partials`).
 
 #include <float.h>
 #include <limits.h>
@@ -329,7 +336,8 @@ greedy_step_sm90(const bf16* __restrict__ h, const bf16* __restrict__ table_t,
                  const int* __restrict__ tlo, const int* __restrict__ thi,
                  const int* __restrict__ tcap, int tb, int batch, int dim,
                  int vocab, float* __restrict__ pf, int* __restrict__ pi,
-                 int* __restrict__ count, int* __restrict__ out) {
+                 int* __restrict__ count, int* __restrict__ out, int voff,
+                 float* __restrict__ parts) {
   using S = Shape<NT>;
   constexpr int R = 8 * NT;                   // rows of a group
   constexpr int RPP = kThreads / S::TILE_U;   // rows of one epilogue pass
@@ -543,7 +551,7 @@ greedy_step_sm90(const bf16* __restrict__ h, const bf16* __restrict__ table_t,
         const int r = rr + RPP * i;
         RowPart part;
         if (r < rows && q < nu) {
-          const int v0 = (tu + q) * kUnit;
+          const int v0 = voff + (tu + q) * kUnit;   // global id
           float x[16];
           const float4* lp = reinterpret_cast<const float4*>(
               lg + r * S::LG_PITCH + q * kUnit);
@@ -653,7 +661,17 @@ greedy_step_sm90(const bf16* __restrict__ h, const bf16* __restrict__ table_t,
       for (int k = 0; k < 8; ++k) part.merge<TS>(p[k]);
     }
     part.merge_lanes<TS, TPR>();
-    if (r < rows && tid % TPR == 0) {
+    if (r < rows && tid % TPR == 0 && parts != nullptr) {
+      float* o = parts + (size_t)(row0 + r) * (TS ? 6 : 2);
+      o[0] = part.m;
+      o[1] = (float)part.mi;
+      if (TS) {
+        o[2] = part.mts;
+        o[3] = (float)part.its;
+        o[4] = part.sts;
+        o[5] = part.mtx;
+      }
+    } else if (r < rows && tid % TPR == 0) {
       int tok = part.mi;
       if (TS) {
         const float lse =
@@ -671,7 +689,7 @@ int launch(const void* h, const void* table_t, const void* add,
            const void* seen, const void* ban, float penalty, const void* tlo,
            const void* thi, const void* tcap, int tb, int batch, int dim,
            int vocab, int n_blocks, void* pf, void* pi, void* count,
-           void* out, cudaStream_t stream) {
+           void* out, int voff, void* parts, cudaStream_t stream) {
   const size_t smem = smem_bytes<NT>(dim);
   const int groups = (batch + 8 * NT - 1) / (8 * NT);
   if (smem > (size_t)kMaxSmem || groups > 65535)
@@ -684,7 +702,7 @@ int launch(const void* h, const void* table_t, const void* add,
       (const bf16*)h, (const bf16*)table_t, (const float*)add,
       (const int8_t*)seen, (const int8_t*)ban, penalty, (const int*)tlo,
       (const int*)thi, (const int*)tcap, tb, batch, dim, vocab, (float*)pf,
-      (int*)pi, (int*)count, (int*)out);
+      (int*)pi, (int*)count, (int*)out, voff, (float*)parts);
   return (int)cudaGetLastError();
 }
 
@@ -695,12 +713,12 @@ int launch_rows(int rows, const void* h, const void* table_t,
                 float penalty, const void* tlo, const void* thi,
                 const void* tcap, int tb, int batch, int dim, int vocab,
                 int n_blocks, void* pf, void* pi, void* count, void* out,
-                cudaStream_t s) {
+                int voff, void* parts, cudaStream_t s) {
 #define K2_ROWS(NT)                                                        \
   case 8 * NT:                                                             \
     return launch<NT, TS>(h, table_t, add, seen, ban, penalty, tlo, thi,   \
                           tcap, tb, batch, dim, vocab, n_blocks, pf, pi,   \
-                          count, out, s);
+                          count, out, voff, parts, s);
   switch (rows) {
     K2_ROWS(1)
     K2_ROWS(2)
@@ -721,14 +739,18 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 // when tlo is not null). `rows` is the row group (8, 16, 32, 64 or 128),
 // `n_blocks` the blocks the vocab is split over; pf and pi hold 4 and 2
 // planes of B * n_blocks partials, count at least ceil(B / rows) int32
-// zeros (left zero); out B int32 tokens. D must be a multiple of 8, vocab
-// of 16, and every array 16-byte aligned. Returns cudaGetLastError() after
-// the launch.
+// zeros (left zero); out B int32 tokens. With `parts` set (the vocab-shard
+// mode) out is unused and parts receives B rows of 2 (6 in ts mode) float32
+// partials; the arrays are a shard whose first column is id voff, and tb
+// and the bounds are global ids. D must be a multiple of 8, vocab of 16,
+// and every array 16-byte aligned. Returns cudaGetLastError() after the
+// launch.
 extern "C" int fused_greedy_step_sm90(
     const void* h, const void* table_t, const void* add, const void* seen,
     const void* ban, float penalty, const void* tlo, const void* thi,
     const void* tcap, int tb, int batch, int dim, int vocab, int rows,
-    int n_blocks, void* pf, void* pi, void* count, void* out, void* stream) {
+    int n_blocks, void* pf, void* pi, void* count, void* out, int voff,
+    void* parts, void* stream) {
   if (batch < 1 || dim < 8 || dim % 8 != 0 || vocab < kUnit ||
       vocab % kUnit != 0 || n_blocks < 1 || n_blocks > vocab / kUnit ||
       !aligned16(h) ||
@@ -739,8 +761,10 @@ extern "C" int fused_greedy_step_sm90(
   return tlo != nullptr
              ? launch_rows<true>(rows, h, table_t, add, seen, ban, penalty,
                                  tlo, thi, tcap, tb, batch, dim, vocab,
-                                 n_blocks, pf, pi, count, out, s)
+                                 n_blocks, pf, pi, count, out, voff, parts,
+                                 s)
              : launch_rows<false>(rows, h, table_t, add, seen, ban, penalty,
                                   tlo, thi, tcap, tb, batch, dim, vocab,
-                                  n_blocks, pf, pi, count, out, s);
+                                  n_blocks, pf, pi, count, out, voff, parts,
+                                  s);
 }

@@ -57,14 +57,14 @@ class Batcher:
         """This process's contiguous slice of a global batch and the count
         of valid (non-wrap-padded) rows inside it (identity on a single
         process)."""
-        n_proc = distributed.process_count()
+        n_proc = distributed.data_count()
         if n_proc == 1:
             return list(idxs), valid
         if len(idxs) % n_proc:
             raise ValueError(f"global batch {len(idxs)} not divisible by "
                              f"{n_proc} processes")
         per = len(idxs) // n_proc
-        pid = distributed.process_index()
+        pid = distributed.data_index()
         local_valid = min(max(valid - pid * per, 0), per)
         return list(idxs[pid * per: (pid + 1) * per]), local_valid
 

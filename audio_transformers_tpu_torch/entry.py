@@ -7,14 +7,17 @@ entry(device="cuda")  -> (fn, args): fn(*args) is the forward of the
                          head, the log-mel front end included: the K3
                          kernel on the card) on 2 seeded clips of 30 s
                          and 24 decoder ids.
-dryrun_multichip(n)   -> data parallelism in n processes on the CPU
-                         (gloo), as the reference validates its mesh on
-                         a virtual CPU mesh: one dual-loss train step at
-                         the test config with the global batch split
-                         over the ranks, then greedy timestamped decode
-                         and segment pooling with the batch split, equal
-                         to one process's decode. Tensor parallelism is
-                         not ported, so the mesh has no "model" axis.
+dryrun_multichip(n)   -> data and tensor parallelism in n processes on
+                         the CPU (gloo), as the reference validates its
+                         mesh on a virtual CPU mesh: a data:n/2 x model:2
+                         mesh when n is even (data:n otherwise), one
+                         dual-loss train step at the test config with
+                         the parameters cut over the model axis and the
+                         global batch over the data axis, its gathered
+                         parameters held to one process's step on the
+                         global batch; then greedy timestamped decode on
+                         the shards and segment pooling with the batch
+                         split, token-equal to one process's decode.
 
     python -m audio_transformers_tpu_torch.entry [--device cpu] [--dryrun N]
 """
@@ -40,7 +43,7 @@ from audio_transformers_tpu_torch.models.whisper import model as wm
 from audio_transformers_tpu_torch.ops.mel import log_mel
 from audio_transformers_tpu_torch.parallel import distributed
 from audio_transformers_tpu_torch.parallel.launch import launch
-from audio_transformers_tpu_torch.parallel.mesh import (build_mesh,
+from audio_transformers_tpu_torch.parallel.mesh import (Mesh, build_mesh,
                                                         replicated)
 
 
@@ -77,7 +80,9 @@ def dryrun_multichip(n_devices: int, *, timeout: float = 300.0) -> list:
 
 
 def _gather(t: torch.Tensor, mesh) -> torch.Tensor:
-    """Every rank's rows of `t`, in rank order (equal row counts)."""
+    """Every data rank's rows of `t`, in rank order (equal row counts)."""
+    if mesh.group is None:
+        return t
     parts = [torch.empty_like(t) for _ in range(mesh.size)]
     dist.all_gather(parts, t.contiguous(), group=mesh.group)
     return torch.cat(parts)
@@ -85,13 +90,18 @@ def _gather(t: torch.Tensor, mesh) -> torch.Tensor:
 
 def _dryrun_rank() -> None:
     from audio_transformers_tpu_torch.data.synthetic import SyntheticSeq2Seq
-    from audio_transformers_tpu_torch.train.common import batch_to_device
-    from audio_transformers_tpu_torch.train.optim import build_optimizer
+    from audio_transformers_tpu_torch.parallel import tensor as tp
+    from audio_transformers_tpu_torch.train.common import (batch_to_device,
+                                                           mean_over_ranks)
+    from audio_transformers_tpu_torch.train.optim import (
+        build_optimizer, frozen_leaf_decay_mask)
     from audio_transformers_tpu_torch.train.whisper_emotion import \
         make_steps
 
     distributed.initialize_if_multihost(device="cpu")
-    mesh = build_mesh()
+    world = distributed.process_count()
+    t = 2 if world % 2 == 0 else 1
+    mesh = build_mesh((("data", world // t), ("model", t)))
     n = mesh.size
     cfg = EmotionWhisperConfig(whisper=WhisperConfig.test(),
                                num_emotion_classes=4)
@@ -109,28 +119,47 @@ def _dryrun_rank() -> None:
                           duration=duration,
                           bos_id=w.decoder_start_token_id,
                           eos_id=w.eos_token_id, pad_id=w.pad_token_id)
-    batch = next(ds.batcher(tcfg.batch_size).train_epochs(epoch=0))
+    batch = batch_to_device(next(ds.batcher(tcfg.batch_size).train_epochs(
+        epoch=0)), "cpu")
     assert batch["waveform"].shape[0] == 2, batch["waveform"].shape
 
-    params = cp.set_trainable(replicated(
-        cp.init(cfg, torch.Generator().manual_seed(0)), mesh))
-    opt = build_optimizer(tcfg.optimizer, params)
-    train_step, _ = make_steps(cfg, mel_cfg, tcfg, opt, "cpu", mesh)
-    metrics = train_step(params, batch_to_device(batch, "cpu"))
-    loss = float(metrics["loss"])
-    if not np.isfinite(loss):
-        raise RuntimeError(f"rank {mesh.rank}: loss {loss}")
-    flat = torch.cat([t.detach().reshape(-1)
-                      for _, t in cp.leaves_with_path(params)])
-    if not torch.equal(_gather(flat[None], mesh),
-                       flat[None].expand(n, -1)):
-        raise RuntimeError("the replicas' parameters differ after a step")
-    print(f"dryrun_multichip({n}): mesh=data:{n}, one dual-loss train "
-          f"step OK, replicas equal, rank {mesh.rank} loss={loss:.4f}")
+    def step(params, axes, mesh_, batch_):
+        params = cp.set_trainable(params)
+        opt = build_optimizer(tcfg.optimizer, params,
+                              decay_mask=frozen_leaf_decay_mask,
+                              model_group=mesh_.model_group, axes=axes)
+        train_step, _ = make_steps(cfg, mel_cfg, tcfg, opt, "cpu", mesh_)
+        metrics = train_step(params, batch_)
+        return mean_over_ranks(metrics, mesh_)["loss"], params
 
-    # inference: every rank decodes its rows of the batch; the gathered
-    # tokens equal one process's decode of the whole batch
+    full = cp.init(cfg, torch.Generator().manual_seed(0))
+    axes = emo.param_axes(full, cfg, t)
+    shards = replicated(tp.shard_params(full, t, mesh.model_rank, axes),
+                        mesh)
+    loss, shards = step(shards, axes, mesh, batch)
+    if not np.isfinite(loss):
+        raise RuntimeError(f"rank {distributed.process_index()}: loss {loss}")
+    got = tp.gather_params(shards, mesh.model_group, axes)
+    # one process's step on the global batch (every data rank's rows)
+    whole = {k: _gather(v, mesh) for k, v in batch.items()}
+    ref_loss, ref = step(cp.init(cfg, torch.Generator().manual_seed(0)),
+                         None, Mesh(1, 0), whole)
+    err = max(float((a - b.detach()).abs().max()) for (_, a), (_, b) in
+              zip(cp.leaves_with_path(got), cp.leaves_with_path(ref)))
+    # AdamW's first step moves a leaf by about lr whatever its gradient's
+    # size: a rounding-level gradient may take either sign
+    if err > 2 * tcfg.optimizer.learning_rate \
+            or abs(loss - ref_loss) > 1e-5 * abs(ref_loss):
+        raise RuntimeError(f"TP step: loss {loss} against {ref_loss}, "
+                           f"parameters differ by {err}")
+    print(f"dryrun_multichip({world}): mesh=data:{n} x model:{t}, one "
+          f"dual-loss train step OK, parameters within {err:.2e} of one "
+          f"process, rank {distributed.process_index()} loss={loss:.4f}")
+
+    # inference: every data rank decodes its rows on its model shards;
+    # the gathered tokens equal one process's decode of the whole batch
     params = cp.init(cfg, torch.Generator().manual_seed(7))
+    shards = tp.shard_params(params, t, mesh.model_rank, axes)
     rng = np.random.default_rng(7)
     mel = torch.from_numpy(rng.standard_normal(
         (2 * n, 2 * w.max_source_positions, w.n_mels)).astype(np.float32))
@@ -139,29 +168,31 @@ def _dryrun_rank() -> None:
     prompt = (w.decoder_start_token_id,)
     # EOS suppressed: every row decodes all its steps
     kw = {"prompt": prompt, "suppress_ids": (w.eos_token_id,)}
+    group = mesh.model_group
     with torch.no_grad():
         enc = wm.encode(params["whisper"], w, mel)
         ref = wdecode.generate(params["whisper"], w, dcfg, enc, **kw)
         ref_seg = emo.segment_emotion_from_decode(params, cfg, ref,
                                                   prompt_len=1)
         rows = slice(2 * mesh.rank, 2 * mesh.rank + 2)
-        out = wdecode.generate(params["whisper"], w, dcfg,
-                               wm.encode(params["whisper"], w, mel[rows]),
-                               **kw)
-        seg = emo.segment_emotion_from_decode(params, cfg, out,
+        out = wdecode.generate(
+            shards["whisper"], w, dcfg,
+            wm.encode(shards["whisper"], w, mel[rows], model_group=group),
+            model_group=group, **kw)
+        seg = emo.segment_emotion_from_decode(shards, cfg, out,
                                               prompt_len=1)
     for key in ("tokens", "lengths"):
         if not torch.equal(_gather(out[key], mesh), ref[key]):
-            raise RuntimeError(f"DP decode: {key} differ from one "
+            raise RuntimeError(f"TP decode: {key} differ from one "
                                "process's decode")
     got = _gather(seg["segment_logits"], mesh)
     err = float((got - ref_seg["segment_logits"]).abs().max())
     if err > 2e-4:
-        raise RuntimeError(f"DP segment pooling differs by {err}")
-    print(f"dryrun_multichip({n}): DP decode + segment pooling OK "
-          f"({int(ref['lengths'].sum())} tokens, batch {2 * n} split "
-          f"over data:{n}, token-equal to one process, segment logits "
-          f"within {err:.2e})")
+        raise RuntimeError(f"TP segment pooling differs by {err}")
+    print(f"dryrun_multichip({world}): TP decode + segment pooling OK "
+          f"({int(ref['lengths'].sum())} tokens, batch {2 * n} split over "
+          f"data:{n}, params over model:{t}, token-equal to one process, "
+          f"segment logits within {err:.2e})")
 
 
 def main(argv=None) -> None:

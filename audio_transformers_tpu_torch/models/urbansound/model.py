@@ -18,7 +18,10 @@ PyTorch tensors, channels-last (B, T, C) throughout:
 normalises with the batch's statistics and moves the running ones; in
 evaluation it normalises with the running ones. Dropout draws from an
 explicit `torch.Generator`; without one (or at dropout 0) nothing is
-dropped. The reference's `param_axes` (tensor parallelism) is not ported.
+dropped. The reference's `param_axes` (tensor parallelism) is not ported
+(ROADMAP.md §1 item 11): the reference's trainer never applies it, and
+on a model axis the port's trainer keeps replicas, as the reference's
+does.
 """
 
 from __future__ import annotations

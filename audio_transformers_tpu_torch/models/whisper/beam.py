@@ -159,7 +159,7 @@ def generate_beam(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
                   prompt: Optional[Tuple[int, ...]] = None,
                   suppress_ids: Tuple[int, ...] = (),
                   begin_suppress_ids: Optional[Tuple[int, ...]] = None,
-                  max_len: Optional[int] = None) -> dict:
+                  max_len: Optional[int] = None, model_group=None) -> dict:
     """Beam-search decode from encoder states enc (B, T, D). Returns a dict
     shaped like `decode.generate`'s:
       tokens  (B, L) int32 - the best hypothesis, pad after EOS
@@ -167,7 +167,12 @@ def generate_beam(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
       lengths (B,) int32   - valid token count incl. prompt and EOS
     plus the kept set: beam_tokens (B, N, L) int32, beam_scores (B, N)
     float32 (length-normalized, empty slots at -1e30) and beam_lengths
-    (B, N) int32."""
+    (B, N) int32. Beams under tensor parallelism (a `model_group`) are
+    not ported: they raise NotImplementedError."""
+    if model_group is not None:
+        raise NotImplementedError(
+            "beam search under tensor parallelism is not ported (ROADMAP.md "
+            "§1 item 11); decode beams on a data-parallel mesh")
     n_beams = dcfg.num_beams
     if n_beams < 2:
         raise ValueError("generate_beam needs num_beams >= 2; use "

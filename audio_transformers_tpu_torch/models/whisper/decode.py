@@ -23,10 +23,21 @@ processor chain with the full timestamp rule, and the draw is
 `argmax(logits / T + g)` with Gumbel noise g (`gumbel_noise`), which is
 what `jax.random.categorical` computes. Positions inside the forced
 prompt take the prompt token.
+
+Under tensor parallelism (`model_group`, the parameters this rank's shards
+of `models/whisper/model.py:param_axes`) each rank runs the decoder step
+on its heads and hidden units and K2 in its vocab-shard mode over its
+columns of the padded table: one all-gather of the (B, 2..6) row partials
+over the model group, then `merge_partials`, on every rank. The sampling
+fallback gathers the rank's logits to the whole vocab (`gather_vocab`)
+and draws the same noise on every rank (the generator seeded alike), so
+every rank holds the same tokens and `finished` flags, and leaves the
+loop at the same step.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -36,6 +47,7 @@ from audio_transformers_tpu_torch.core.config import (DecodeConfig,
 from audio_transformers_tpu_torch.models.whisper import model as wm
 from audio_transformers_tpu_torch.ops import decode_logits as dl
 from audio_transformers_tpu_torch.ops import logit_processors as lp
+from audio_transformers_tpu_torch.parallel import tensor as tp
 
 # Begin-suppress defaults: " " and <|endoftext|> (whisper generation config).
 _SPACE_TOKEN = 220
@@ -141,11 +153,14 @@ def generate(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
              enc: torch.Tensor, *,
              prompt: Optional[Tuple[int, ...]] = None,
              suppress_ids: Tuple[int, ...] = (),
-             generator: Optional[torch.Generator] = None) -> dict:
+             generator: Optional[torch.Generator] = None,
+             model_group=None) -> dict:
     """Greedy decode from encoder states enc (B, T, D), or with
     `dcfg.temperature` > 0 sampled decode, drawing from `generator` (on
     enc's device; a fresh one seeded 0 by default, as the reference's
-    PRNGKey(0)). Returns a dict:
+    PRNGKey(0)). With a `model_group`, `params` are this rank's shards
+    (tensor parallelism; a given generator must be seeded alike on every
+    rank of the group). Returns a dict:
       tokens  (B, L) int32 - prompt + generated, pad after EOS
       hiddens (B, L, D)    - decoder last hidden per fed position (zero
                              for positions never fed)
@@ -174,25 +189,30 @@ def generate(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
     self_quant = dcfg.kv_quant if length >= dcfg.self_kv_min else "none"
     if self_quant == "int4":
         self_quant = "int8"   # int4 covers only the cross K/V
+    t_size = tp.model_size(model_group)
     cache = wm.init_cache(cfg, batch, max_len=length, dtype=enc.dtype,
-                          device=dev, quant=self_quant)
+                          device=dev, quant=self_quant, model_size=t_size)
     cross = wm.precompute_cross_attention(params, cfg, enc,
                                           quant=dcfg.kv_quant)
     step_params = wm.prepare_decode_params(params, cfg, dtype=enc.dtype)
 
-    # the fused step's padded operands, built once outside the loop
+    # the fused step's padded operands, built once outside the loop: the
+    # rank's columns [v0, v0 + width) of the padded table, bias and masks
+    v0, v1, width = tp.vocab_shard(cfg.vocab_size, t_size,
+                                   tp.model_rank(model_group))
     v_pad = dl.pad_vocab(cfg.vocab_size)
-    table_t = torch.zeros((cfg.d_model, v_pad), dtype=enc.dtype, device=dev)
-    table_t[:, :cfg.vocab_size] = step_params["embed"]["table"].t()
+    table_t = torch.zeros((cfg.d_model, width), dtype=enc.dtype, device=dev)
+    table_t[:, :v1 - v0] = step_params["embed"]["table"].t()
     # the timestamp rules' one position-independent mask: <|notimestamps|>
     # is always suppressed
     static_ids = tuple(suppress_ids) + ((cfg.no_timestamps_token_id,)
                                         if dcfg.return_timestamps else ())
     add_base = lp.suppress_vector(v_pad, static_ids, vocab=cfg.vocab_size,
-                                  device=dev)
+                                  device=dev)[v0:v0 + width].clone()
     add_begin = lp.suppress_vector(v_pad, static_ids
                                    + tuple(begin_suppress_ids),
-                                   vocab=cfg.vocab_size, device=dev)
+                                   vocab=cfg.vocab_size,
+                                   device=dev)[v0:v0 + width].clone()
     ts_begin = cfg.timestamp_begin_id if dcfg.return_timestamps else None
     if sampling:
         if generator is None:
@@ -207,8 +227,8 @@ def generate(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
     rows = torch.arange(batch, device=dev)
     seen = None
     if track_seen:
-        seen = torch.zeros((batch, v_pad), dtype=torch.int8, device=dev)
-        seen[rows, tokens[:, 0]] = 1
+        seen = torch.zeros((batch, width), dtype=torch.int8, device=dev)
+        _mark_seen(seen, rows, tokens[:, 0], v0, model_group)
     n = dcfg.no_repeat_ngram_size
     use_ban = bool(n) and length >= n
     finished = torch.zeros(batch, dtype=torch.bool, device=dev)
@@ -216,7 +236,8 @@ def generate(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
     while cache["index"] < length - 1 and not bool(finished.all()):
         i = cache["index"]
         hidden, cache = wm.apply_decoder_step(step_params, cfg, tokens[:, i],
-                                              cache, cross)
+                                              cache, cross,
+                                              model_group=model_group)
         hiddens[:, i] = hidden
         pos = i + 1   # position being generated
         if sampling:
@@ -224,14 +245,18 @@ def generate(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
         if pos < p_len:
             nxt = prompt_t[pos].expand(batch)
         elif sampling:
+            logits = tp.gather_vocab(torch.matmul(hidden.float(), table.t()),
+                                     model_group, cfg.vocab_size)
             logits = _process_logits(
-                torch.matmul(hidden.float(), table.t()), tokens, pos, cfg,
-                dcfg, p_len, masks,
-                seen=seen[:, :cfg.vocab_size] if track_seen else None,
+                logits, tokens, pos, cfg, dcfg, p_len, masks,
+                seen=(_whole_seen(seen, model_group, cfg.vocab_size)
+                      if track_seen else None),
                 finished=finished)
             nxt = torch.argmax(logits / dcfg.temperature + noise, dim=-1)
         else:
-            ban = (lp.ngram_ban_mask(tokens, pos, n, v_pad, finished)
+            ban = (lp.ngram_ban_mask(tokens, pos, n, width, finished,
+                                     offset=None if model_group is None
+                                     else v0)
                    if use_ban else None)
             ts_bounds = None
             if dcfg.return_timestamps:
@@ -239,21 +264,29 @@ def generate(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
                     tokens, pos, begin_index=p_len,
                     timestamp_begin=cfg.timestamp_begin_id,
                     eos_token_id=cfg.eos_token_id)
-            nxt = dl.fused_greedy_step(
-                hidden, table_t, add_begin if pos == p_len else add_base,
-                seen=seen, ban=ban, penalty=dcfg.repetition_penalty,
-                ts_bounds=ts_bounds, timestamp_begin=ts_begin).long()
+            step = functools.partial(
+                dl.fused_greedy_step, hidden, table_t,
+                add_begin if pos == p_len else add_base, seen=seen, ban=ban,
+                penalty=dcfg.repetition_penalty, ts_bounds=ts_bounds,
+                timestamp_begin=ts_begin)
+            if model_group is None:
+                nxt = step().long()
+            else:
+                nxt = dl.merge_partials(_gather_rows(
+                    step(vocab_offset=v0, partials=True),
+                    model_group)).long()
         if pos >= p_len:
             nxt = torch.where(finished, cfg.pad_token_id, nxt)
             finished |= nxt == cfg.eos_token_id
         tokens[:, pos] = nxt
         if track_seen:
-            seen[rows, nxt] = 1
+            _mark_seen(seen, rows, nxt, v0, model_group)
 
     # feed the final token once more for the last position's hidden state
     i = cache["index"]
     hidden, cache = wm.apply_decoder_step(step_params, cfg, tokens[:, i],
-                                          cache, cross)
+                                          cache, cross,
+                                          model_group=model_group)
     hiddens[:, i] = hidden
 
     positions = torch.arange(length, device=dev)[None, :]
@@ -264,13 +297,42 @@ def generate(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
             "lengths": lengths.to(torch.int32)}
 
 
+def _mark_seen(seen: torch.Tensor, rows: torch.Tensor, ids: torch.Tensor,
+               v0: int, group) -> None:
+    """Marks ids (B,) in the seen mask; under a model `group` the mask is
+    the vocab columns [v0, v0 + width), and ids outside them leave it as
+    it is."""
+    if group is None:
+        seen[rows, ids] = 1
+        return
+    local = ids - v0
+    hit = ((local >= 0) & (local < seen.shape[1])).to(seen.dtype)
+    local = local.clamp(0, seen.shape[1] - 1)
+    seen[rows, local] = seen[rows, local] | hit
+
+
+def _whole_seen(seen: torch.Tensor, group, vocab: int) -> torch.Tensor:
+    """The (B, vocab) seen mask from every rank's columns."""
+    if group is None:
+        return seen[:, :vocab]
+    start, stop, _ = tp.vocab_shard(vocab, tp.model_size(group),
+                                    tp.model_rank(group))
+    return tp.gather_vocab(seen[:, :stop - start].float(), group, vocab)
+
+
+def _gather_rows(parts: torch.Tensor, group) -> torch.Tensor:
+    """(t, B, K): every model rank's (B, K) row partials, in rank order."""
+    return torch.stack(tp.all_gather(parts, group))
+
+
 def generate_with_fallback(params: dict, cfg: WhisperConfig,
                            dcfg: DecodeConfig, enc: torch.Tensor, *,
                            prompt: Optional[Tuple[int, ...]] = None,
                            suppress_ids: Tuple[int, ...] = (),
                            tokenizer=None,
                            generator: Optional[torch.Generator] = None,
-                           fallback_temperature: float = 0.7) -> dict:
+                           fallback_temperature: float = 0.7,
+                           model_group=None) -> dict:
     """`generate`, then whisper's anti-repetition fallback: rows whose
     transcript's zlib compression ratio exceeds
     `dcfg.compression_ratio_threshold` (of the tokenizer's text, or else
@@ -287,7 +349,7 @@ def generate_with_fallback(params: dict, cfg: WhisperConfig,
         compression_ratio
 
     out = generate(params, cfg, dcfg, enc, prompt=prompt,
-                   suppress_ids=suppress_ids)
+                   suppress_ids=suppress_ids, model_group=model_group)
     threshold = dcfg.compression_ratio_threshold
     if not threshold:
         return out
@@ -308,7 +370,8 @@ def generate_with_fallback(params: dict, cfg: WhisperConfig,
     idx = torch.tensor(flagged, device=enc.device)
     hot = dcfg.replace(temperature=fallback_temperature)
     resampled = generate(params, cfg, hot, enc[idx], prompt=prompt,
-                         suppress_ids=suppress_ids, generator=generator)
+                         suppress_ids=suppress_ids, generator=generator,
+                         model_group=model_group)
     merged = dict(out)
     for k in ("tokens", "hiddens", "lengths"):
         merged[k] = out[k].index_copy(0, idx, resampled[k])

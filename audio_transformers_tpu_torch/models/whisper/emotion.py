@@ -19,6 +19,7 @@ from audio_transformers_tpu_torch.core.config import \
 from audio_transformers_tpu_torch.core import params as cp
 from audio_transformers_tpu_torch.models.whisper import model as wm
 from audio_transformers_tpu_torch.ops import nn
+from audio_transformers_tpu_torch.parallel import tensor as tp
 from audio_transformers_tpu_torch.ops.segment_pool import (
     masked_sequence_mean, segment_ids_from_tokens, segment_means)
 
@@ -28,10 +29,20 @@ def init(cfg: EmotionWhisperConfig, generator: torch.Generator) -> dict:
     return cp.init(cfg, generator)
 
 
+def param_axes(params: dict, cfg: EmotionWhisperConfig,
+               model_size: int = 1) -> dict:
+    """The tensor-parallel layout (`parallel.tensor.Split` per leaf):
+    whisper's rules (`model.param_axes`) and the emotion head whole, as
+    the reference's `param_axes`."""
+    return {"whisper": wm.param_axes(params["whisper"], cfg.whisper,
+                                     model_size),
+            "emotion_head": {k: None for k in params["emotion_head"]}}
+
+
 def forward_train(params: dict, cfg: EmotionWhisperConfig, mel: torch.Tensor,
                   decoder_ids: torch.Tensor, *, remat: bool = False,
-                  pooling: str = "all", attn_impl: str = "auto"
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  pooling: str = "all", attn_impl: str = "auto",
+                  model_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced pass: mel (B, T_mel, n_mels) in the compute dtype,
     decoder_ids (B, T) -> (token logits (B, T, V) float32, emotion logits
     (B, C) float32).
@@ -40,13 +51,18 @@ def forward_train(params: dict, cfg: EmotionWhisperConfig, mel: torch.Tensor,
     reference's training-time pooling); "masked" leaves out positions whose
     id is the pad token. attn_impl="flash" trains through the flash
     attention kernels (forward and backward); "auto" is "xla" here, as in
-    the reference."""
+    the reference. With a `model_group`, `params` are this rank's shards
+    (`param_axes`) and the logits are gathered over the vocab shards, so
+    every rank returns the whole outputs."""
     w = cfg.whisper
     enc = wm.encode(params["whisper"], w, mel, remat=remat,
-                    attn_impl=attn_impl)
+                    attn_impl=attn_impl, model_group=model_group)
     hidden = wm.apply_decoder(params["whisper"], w, enc, decoder_ids,
-                              remat=remat, attn_impl=attn_impl)
-    logits = wm.logits_from_hidden(params["whisper"], hidden)
+                              remat=remat, attn_impl=attn_impl,
+                              model_group=model_group)
+    logits = tp.gather_vocab(
+        wm.logits_from_hidden(params["whisper"], hidden, model_group),
+        model_group, w.vocab_size)
     if pooling == "all":
         pooled = hidden.float().mean(dim=1)
     elif pooling == "masked":

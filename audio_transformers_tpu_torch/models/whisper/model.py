@@ -43,16 +43,59 @@ from audio_transformers_tpu_torch.core.params import map_tensors
 from audio_transformers_tpu_torch.ops import nn
 from audio_transformers_tpu_torch.ops.decode_attention import (
     decode_cross_attention, pack_int4, unpack_int4)
+from audio_transformers_tpu_torch.ops.decode_logits import pad_vocab
+from audio_transformers_tpu_torch.parallel import tensor as tp
 
 Tensor = torch.Tensor
 
 
-def _self_block(p: dict, x: Tensor, heads: int, impl: str) -> Tensor:
+def param_axes(params: dict, cfg: WhisperConfig, model_size: int = 1):
+    """The tensor-parallel layout of a whisper tree over a model axis of
+    `model_size`, the reference's rules (`param_axes` of
+    `audio_transformers_tpu/models/whisper/model.py`) on the port's (out,
+    in) weights: q/k/v/fc1 weights cut along dim 0 (heads, hidden) with
+    the q/v/fc1 biases (whisper's k has none), o/fc2 weights along dim 1
+    (their inputs; their biases stay whole and are added once, after the
+    all-reduce), the tied embedding's rows on the padded vocab boundary
+    (`parallel.tensor.vocab_shard`), everything else whole. A tree of
+    `parallel.tensor.Split` or None per leaf. Raises ValueError unless
+    the heads split evenly: a cut inside a head is another computation."""
+    if cfg.num_heads % model_size or cfg.ffn_dim % model_size:
+        raise ValueError(f"{cfg.num_heads} heads (ffn {cfg.ffn_dim}) do not "
+                         f"split over a model axis of {model_size}")
+    tp.vocab_shard(cfg.vocab_size, model_size, 0)     # the vocab splits
+
+    def axes(tree, path):
+        if isinstance(tree, dict):
+            return {k: axes(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [axes(v, path + (i,)) for i, v in enumerate(tree)]
+        tail = "/".join(str(p) for p in path[-3:])
+        if tail.endswith(("attn/q/w", "attn/k/w", "attn/v/w", "fc1/w",
+                          "attn/q/b", "attn/v/b", "fc1/b")):
+            return tp.Split(0)
+        if tail.endswith(("attn/o/w", "fc2/w")):
+            return tp.Split(1)
+        if tail.endswith("embed/table"):
+            return tp.Split(0, pad_vocab(cfg.vocab_size))
+        return None
+    return axes(params, ())
+
+
+def _mlp(p: dict, h: Tensor, group) -> Tensor:
+    """fc2(gelu(fc1(h))); under a model `group`, fc1 column- and fc2
+    row-parallel (one all-reduce)."""
+    h = nn.gelu(nn.linear(p["fc1"], tp.copy_to_model(h, group)))
+    return nn.row_linear(p["fc2"], h, group)
+
+
+def _self_block(p: dict, x: Tensor, heads: int, impl: str,
+                group=None) -> Tensor:
     h = nn.layer_norm(p["self_ln"], x)
     x = x + nn.multihead_attention(p["self_attn"], h, h, num_heads=heads,
-                                   impl=impl)
+                                   impl=impl, group=group)
     h = nn.layer_norm(p["mlp_ln"], x)
-    return x + nn.linear(p["fc2"], nn.gelu(nn.linear(p["fc1"], h)))
+    return x + _mlp(p, h, group)
 
 
 def _blocks(block, remat: bool):
@@ -65,7 +108,8 @@ def _blocks(block, remat: bool):
 
 
 def encode(params: dict, cfg: WhisperConfig, mel: Tensor, *,
-           remat: bool = False, attn_impl: str = "xla") -> Tensor:
+           remat: bool = False, attn_impl: str = "xla",
+           model_group=None) -> Tensor:
     """mel (B, T_mel, n_mels) -> encoder states (B, T_mel // 2, d_model),
     in mel's dtype.
 
@@ -74,7 +118,10 @@ def encode(params: dict, cfg: WhisperConfig, mel: Tensor, *,
     here as in the reference; the trainer resolves its own "auto". The
     positional table is frozen, as in the reference (stop_gradient): it
     takes no gradient. remat=True recomputes each block's activations in
-    the backward instead of keeping them."""
+    the backward instead of keeping them. With a `model_group`, `params`
+    are this rank's shards (`param_axes`): each block runs its heads and
+    hidden units, with two all-reduces, and every rank's output is the
+    whole one."""
     if attn_impl == "auto":
         attn_impl = "xla"
     p = params["encoder"]
@@ -83,56 +130,64 @@ def encode(params: dict, cfg: WhisperConfig, mel: Tensor, *,
     x = x + p["pos"].detach()[None, : x.shape[1], :].to(x.dtype)
     block = _blocks(_self_block, remat)
     for bp in p["blocks"]:
-        x = block(bp, x, cfg.num_heads, attn_impl)
+        x = block(bp, x, cfg.num_heads, attn_impl, model_group)
     return nn.layer_norm(p["ln"], x)
 
 
 def _cross_block(p: dict, x: Tensor, enc: Tensor, heads: int,
-                 impl: str) -> Tensor:
+                 impl: str, group=None) -> Tensor:
     h = nn.layer_norm(p["self_ln"], x)
     x = x + nn.multihead_attention(p["self_attn"], h, h, num_heads=heads,
-                                   causal=True, impl=impl)
+                                   causal=True, impl=impl, group=group)
     h = nn.layer_norm(p["cross_ln"], x)
     x = x + nn.multihead_attention(p["cross_attn"], h, enc, num_heads=heads,
-                                   impl=impl)
+                                   impl=impl, group=group)
     h = nn.layer_norm(p["mlp_ln"], x)
-    return x + nn.linear(p["fc2"], nn.gelu(nn.linear(p["fc1"], h)))
+    return x + _mlp(p, h, group)
 
 
 def apply_decoder(params: dict, cfg: WhisperConfig, enc: Tensor,
                   tokens: Tensor, *, remat: bool = False,
-                  attn_impl: str = "xla") -> Tensor:
+                  attn_impl: str = "xla", model_group=None) -> Tensor:
     """Teacher-forced decoder pass: tokens (B, T) -> last hidden states
     (B, T, d_model) in enc's dtype. Causal self-attention with no padding
     mask, non-causal cross-attention, as in the reference. Embedding plus
     positions are summed in the parameters' dtype, then cast. "auto" is
-    "xla", as in `encode`; so is remat."""
+    "xla", as in `encode`; so is remat; so is `model_group` (the
+    embedding lookup of a vocab-sharded table takes one more
+    all-reduce)."""
     if attn_impl == "auto":
         attn_impl = "xla"
     p = params["decoder"]
-    x = nn.embedding_lookup(p["embed"], tokens)
+    x = nn.embedding_lookup(p["embed"], tokens, model_group, cfg.vocab_size)
     x = (x + p["pos"][None, : tokens.shape[1], :]).to(enc.dtype)
     block = _blocks(_cross_block, remat)
     for bp in p["blocks"]:
-        x = block(bp, x, enc, cfg.num_heads, attn_impl)
+        x = block(bp, x, enc, cfg.num_heads, attn_impl, model_group)
     return nn.layer_norm(p["ln"], x)
 
 
-def logits_from_hidden(params: dict, hidden: Tensor) -> Tensor:
+def logits_from_hidden(params: dict, hidden: Tensor,
+                       model_group=None) -> Tensor:
     """Tied output projection: hidden (B, T, D) @ embed^T -> (B, T, vocab)
     float32. Both operands are rounded to hidden's dtype and multiplied in
     float32, so bfloat16 operands give float32 logits, as the reference's
     preferred_element_type=f32 does (exact products; on the GPU this
-    relies on PyTorch's default of no TF32 for float32 matmuls)."""
+    relies on PyTorch's default of no TF32 for float32 matmuls). With a
+    `model_group` and this rank's rows of the table, the logits of its
+    vocab shard (`parallel.tensor.gather_vocab` joins them)."""
     table = params["decoder"]["embed"]["table"].to(hidden.dtype)
+    hidden = tp.copy_to_model(hidden, model_group)
     return torch.matmul(hidden.float(), table.float().t())
 
 
 def init_cache(cfg: WhisperConfig, batch: int, *,
                max_len: Optional[int] = None, dtype=torch.float32,
-               device=None, quant: str = "none") -> dict:
+               device=None, quant: str = "none",
+               model_size: int = 1) -> dict:
     """Self-attention K/V buffers of static length, one per layer, in the
-    time-minor (B, H, hd, L) layout, and the write index (a host int).
+    time-minor (B, H, hd, L) layout, and the write index (a host int);
+    on a model axis of `model_size`, H is this rank's heads.
 
     quant="int8" stores int8 K/V with one float32 scale per written time
     step, "k_scale" and "v_scale" of (B, H, L), as the reference does:
@@ -140,7 +195,7 @@ def init_cache(cfg: WhisperConfig, batch: int, *,
     if quant not in ("none", "int8"):
         raise ValueError(f"unknown kv_quant {quant!r}")
     max_len = max_len or cfg.max_target_positions
-    h, hd, n = cfg.num_heads, cfg.head_dim, cfg.decoder_layers
+    h, hd, n = cfg.num_heads // model_size, cfg.head_dim, cfg.decoder_layers
 
     def zeros(shape, dt):
         return [torch.zeros(shape, dtype=dt, device=device)
@@ -161,11 +216,13 @@ def prepare_decode_params(params: dict, cfg: WhisperConfig,
     """Step-ready decoder weights, built once outside the decode loop:
     per layer the self-attention q/k/v projections fused into one (3D, D)
     weight (whisper's k projection has no bias: a zero bias keeps the
-    fused add uniform), and every tensor cast to `dtype` once."""
-    d = cfg.d_model
+    fused add uniform), and every tensor cast to `dtype` once. Over a
+    rank's shards (`param_axes`) it fuses the rank's q/k/v rows, (3D/t,
+    D)."""
     layers = []
     for bp in params["decoder"]["blocks"]:
         sa = bp["self_attn"]
+        d = sa["q"]["w"].shape[0]
         qkv_w = torch.cat([sa["q"]["w"], sa["k"]["w"], sa["v"]["w"]], dim=0)
         kb = sa["k"].get("b", torch.zeros(d, dtype=sa["q"]["b"].dtype,
                                           device=sa["q"]["b"].device))
@@ -200,7 +257,9 @@ def precompute_cross_attention(params: dict, cfg: WhisperConfig, enc: Tensor,
     the cross-attention kernel folds them at the edges. quant="int4" has
     the same scales at a quarter of the range (qmax 7) and stores the
     values nibble-packed along time (`pack_int4`, (B, H, hd, T/2) int8),
-    the K scales split even/odd as (B, H, 2, T/2); T must be even."""
+    the K scales split even/odd as (B, H, 2, T/2); T must be even. Over a
+    rank's shards (`param_axes`) H is the rank's heads: every scale
+    reduces within one head, so the shards' values are the whole run's."""
     if quant not in ("none", "int8", "int4"):
         raise ValueError(f"unknown kv_quant {quant!r}")
     out = {"k": [], "v": []}
@@ -213,9 +272,10 @@ def precompute_cross_attention(params: dict, cfg: WhisperConfig, enc: Tensor,
         # the softmax; whisper's encoder length is always even
         raise ValueError(f"kv_quant='int4' needs an even encoder length, "
                          f"got T={t}")
-    h, hd = cfg.num_heads, cfg.head_dim
+    hd = cfg.head_dim
     enc_t = enc.transpose(1, 2)                           # (B, D, T)
     for bp in params["decoder"]["blocks"]:
+        h = bp["cross_attn"]["k"]["w"].shape[0] // hd
         kv = []
         for name in ("k", "v"):
             lin = bp["cross_attn"][name]
@@ -322,8 +382,8 @@ def _beam_cross_attention(cq: Tensor, k: Tensor, v: Tensor,
 
 
 def apply_decoder_step(sp: dict, cfg: WhisperConfig, token: Tensor,
-                       cache: dict, cross: dict, *,
-                       beams: int = 1) -> Tuple[Tensor, dict]:
+                       cache: dict, cross: dict, *, beams: int = 1,
+                       model_group=None) -> Tuple[Tensor, dict]:
     """One decode step over the step-ready weights `sp`
     (`prepare_decode_params`). token (B,) int64 -> (hidden (B, d_model),
     cache).
@@ -340,17 +400,27 @@ def apply_decoder_step(sp: dict, cfg: WhisperConfig, token: Tensor,
     beams > 1: token and cache hold B*beams rows while `cross`, from
     `beam_cross`, holds the B encoder rows, shared by the beams of each
     row (`_beam_cross_attention`); the cross-attention kernel K1 is
-    single-query and is not called, as in the reference."""
+    single-query and is not called, as in the reference.
+
+    With a `model_group`, `sp`, `cache` and `cross` hold this rank's heads
+    and hidden units and its rows of the embedding (`param_axes`): the
+    lookup is vocab-parallel (one all-reduce), and each layer's self o,
+    cross o and fc2 projections end in an all-reduce, so the hidden state
+    returned is the whole one on every rank."""
     if beams > 1 and "p_dtype" not in cross:
         raise ValueError("a beam step reads the cross K/V of beam_cross()")
     idx = cache["index"]
     b = token.shape[0]
-    d, h_heads, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    hd = cfg.head_dim
+    d = sp["blocks"][0]["qkv"]["w"].shape[0] // 3        # this rank's width
+    h_heads = d // hd
     scale = 1.0 / math.sqrt(hd)
     cross_quant = "k_scale" in cross
     self_quant = "k_scale" in cache
+    group = model_group
 
-    x = nn.embedding_lookup(sp["embed"], token) + sp["pos"][idx][None, :]
+    x = nn.embedding_lookup(sp["embed"], token, group, cfg.vocab_size)
+    x = x + sp["pos"][idx][None, :]
     x = x.to(sp["blocks"][0]["qkv"]["w"].dtype)
     for li, bp in enumerate(sp["blocks"]):
         h = nn.layer_norm(bp["self_ln"], x)
@@ -386,7 +456,7 @@ def apply_decoder_step(sp: dict, cfg: WhisperConfig, token: Tensor,
             probs = torch.softmax(logits, dim=-1).to(v_all.dtype)
             attn = torch.einsum("bhk,bhdk->bhd", probs.float(),
                                 v_vis.float()).to(x.dtype)
-        x = x + nn.linear(bp["self_o"], attn.reshape(b, d))
+        x = x + nn.row_linear(bp["self_o"], attn.reshape(b, d), group)
 
         h = nn.layer_norm(bp["cross_ln"], x)
         cq = nn.linear(bp["cross_q"], h).reshape(b, h_heads, hd)
@@ -400,9 +470,10 @@ def apply_decoder_step(sp: dict, cfg: WhisperConfig, token: Tensor,
             cattn = decode_cross_attention(cq, cross["k"][li],
                                            cross["v"][li], k_scale=k_scale,
                                            v_scale=v_scale, scale=scale)
-        x = x + nn.linear(bp["cross_o"], cattn.to(x.dtype).reshape(b, d))
+        x = x + nn.row_linear(bp["cross_o"], cattn.to(x.dtype).reshape(b, d),
+                              group)
 
         h = nn.layer_norm(bp["mlp_ln"], x)
-        x = x + nn.linear(bp["fc2"], nn.gelu(nn.linear(bp["fc1"], h)))
+        x = x + _mlp(bp, h, group)
     cache["index"] = idx + 1
     return nn.layer_norm(sp["ln"], x), cache

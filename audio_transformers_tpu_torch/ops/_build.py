@@ -49,6 +49,7 @@ class KernelStats:
 STATS: Dict[str, KernelStats] = {
     "decode_cross_attention": KernelStats(),
     "fused_greedy_step": KernelStats(),
+    "fused_greedy_step_partials": KernelStats(),
     "log_mel": KernelStats(),
     "flash_attention_fwd": KernelStats(),
     "flash_attention_bwd_dq": KernelStats(),

@@ -26,6 +26,13 @@ logits never reach device memory.
   two passes (one block per 256-id tile and 8 rows, then a merge per
   row).
 
+The vocab-shard mode (`vocab_offset`, `partials=True`; tensor
+parallelism, where each rank holds the table's columns [v0, v0 + V_pad/t))
+runs the same launch over a shard and stops before the pick: per row it
+returns the partials the kernel keeps (`PARTS`), its ids global, and the
+ranks merge every shard's with `merge_partials`, the pick GSPMD's
+vocab-sharded argmax made in the reference.
+
 Ties go to the lowest index, inside a block and across blocks, as
 `torch.argmax` does. Semantics match `fused_greedy_step_reference` (the
 plain version here) and the reference package's kernel and XLA chain:
@@ -59,9 +66,11 @@ TILE_V = 256   # vocab ids per block
 ROWS = 8       # rows per block
 _SMEM_LIMIT = 48 * 1024
 # hidden, table_t, add, seen, ban; penalty; tlo, thi, tcap; tb, batch,
-# dim, vocab, dtype; partials (float, int), out; stream
+# dim, vocab, dtype; partials (float, int), out; vocab offset, row
+# partials out; stream
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_float] + [ctypes.c_void_p] * 3
-             + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+             + [ctypes.c_void_p] * 2)
 
 # bfloat16 route (csrc/decode_logits_sm90.cu); the sizes must match it
 UNIT_V = 16                      # vocab ids per unit of the split
@@ -73,10 +82,18 @@ GROUP_ROWS = tuple(GROUP_UPW)
 SMEM_MAX = 232448 - 1024
 H100_SMS = 132
 # hidden, table_t, add, seen, ban; penalty; tlo, thi, tcap; tb, batch,
-# dim, vocab, rows, blocks; partials (float, int), counters, out; stream
+# dim, vocab, rows, blocks; partials (float, int), counters, out; vocab
+# offset, row partials out; stream
 _SM90_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_float]
                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                  + [ctypes.c_void_p] * 5)
+                  + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+                  + [ctypes.c_void_p] * 2)
+# the row partials of the vocab-shard mode, float32 columns: the max and
+# its global id; in timestamp mode then the timestamp max and its id, the
+# timestamp sum of exp relative to that max, and the text max. An empty
+# region (no timestamp or no text id in the shard) is (-inf, NO_ID).
+PARTS = ("max", "argmax", "ts_max", "ts_argmax", "ts_sum", "text_max")
+NO_ID = float(2 ** 31)   # (float) INT_MAX in the kernels
 # the scratch of each (device, stream): the merge counters (int32, zero
 # between launches) and the partials (float32, int32)
 _SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, ...]] = {}
@@ -165,7 +182,7 @@ def pad_vocab(v: int, block_v: int = 1024) -> int:
 
 
 def _validate(hidden, table_t, add_vec, seen, ban, penalty, ts_bounds,
-              timestamp_begin):
+              timestamp_begin, vocab_offset=0, partials=False):
     b, d = hidden.shape
     if table_t.dim() != 2 or table_t.shape[0] != d:
         raise ValueError(f"table_t {tuple(table_t.shape)} vs hidden "
@@ -183,16 +200,24 @@ def _validate(hidden, table_t, add_vec, seen, ban, penalty, ts_bounds,
         raise ValueError("penalty != 1.0 requires the seen mask")
     if (ts_bounds is None) != (timestamp_begin is None):
         raise ValueError("ts_bounds and timestamp_begin go together")
-    if ts_bounds is not None and not 0 < timestamp_begin < v_pad:
+    if vocab_offset < 0 or vocab_offset % UNIT_V:
+        raise ValueError(f"vocab_offset {vocab_offset} is not a non-negative "
+                         f"multiple of {UNIT_V}")
+    # a shard may lie wholly below or above timestamp_begin (a global id);
+    # unsharded it must split the vocab
+    if ts_bounds is not None and not (
+            timestamp_begin > 0 if partials
+            else 0 < timestamp_begin < v_pad):
         raise ValueError(f"timestamp_begin {timestamp_begin} outside the "
                          f"padded vocab {v_pad}")
 
 
 def processed_logits(hidden, table_t, add_vec, *, seen=None, ban=None,
-                     penalty=1.0, ts_bounds=None,
-                     timestamp_begin=None) -> torch.Tensor:
+                     penalty=1.0, ts_bounds=None, timestamp_begin=None,
+                     vocab_offset=0) -> torch.Tensor:
     """The (B, V_pad) float32 logits after every processor, before the
-    token pick: the plain version's first half."""
+    token pick: the plain version's first half. Column j is vocab id
+    vocab_offset + j."""
     l = hidden.float() @ table_t.float()
     l = l + add_vec.reshape(1, -1).float()
     if seen is not None:
@@ -201,7 +226,7 @@ def processed_logits(hidden, table_t, add_vec, *, seen=None, ban=None,
         l = l.masked_fill(ban != 0, NEG_INF)
     if ts_bounds is not None:
         tlo, thi, tcap = (x.long()[:, None] for x in ts_bounds)
-        g = torch.arange(l.shape[1], device=l.device)[None, :]
+        g = vocab_offset + torch.arange(l.shape[1], device=l.device)[None, :]
         tb = int(timestamp_begin)
         l = l.masked_fill((g < tlo) | ((g >= tb) & (g < thi)) | (g > tcap),
                           NEG_INF)
@@ -224,14 +249,76 @@ def fused_greedy_step_reference(hidden, table_t, add_vec, *, seen=None,
     return torch.where(force, arg_ts, l.argmax(dim=-1)).to(torch.int32)
 
 
+def fused_greedy_step_partials_reference(
+        hidden, table_t, add_vec, *, seen=None, ban=None, penalty=1.0,
+        ts_bounds=None, timestamp_begin=None,
+        vocab_offset=0) -> torch.Tensor:
+    """Plain version of the vocab-shard mode: the (B, 2) or, with
+    timestamps, (B, 6) float32 row partials (`PARTS`) of the shard whose
+    first column is id `vocab_offset`; the masks are the shard's columns,
+    the bounds and timestamp_begin global ids."""
+    _build.count_plain("fused_greedy_step_partials", hidden)
+    l = processed_logits(hidden, table_t, add_vec, seen=seen, ban=ban,
+                         penalty=penalty, ts_bounds=ts_bounds,
+                         timestamp_begin=timestamp_begin,
+                         vocab_offset=vocab_offset)
+    b, w = l.shape
+
+    def arg(x, start):   # (max, lowest id of the max) of columns x
+        if x.shape[1] == 0:
+            return (torch.full((b,), float("-inf"), device=l.device),
+                    torch.full((b,), NO_ID, device=l.device))
+        m, i = x.max(dim=-1)
+        return m, (vocab_offset + start + i).float()
+
+    m, mi = arg(l, 0)
+    if ts_bounds is None:
+        return torch.stack([m, mi], dim=1)
+    c = min(max(int(timestamp_begin) - vocab_offset, 0), w)
+    mts, its = arg(l[:, c:], c)
+    sts = (torch.exp(l[:, c:] - mts[:, None]).sum(dim=-1) if c < w
+           else torch.zeros(b, device=l.device))
+    mtx = (l[:, :c].amax(dim=-1) if c > 0
+           else torch.full((b,), float("-inf"), device=l.device))
+    return torch.stack([m, mi, mts, its, sts, mtx], dim=1)
+
+
+def merge_partials(parts: torch.Tensor) -> torch.Tensor:
+    """(t, B, K) row partials of t vocab shards (`PARTS`, any order) ->
+    (B,) int32 tokens: the largest max and the lowest id among equal ones;
+    with timestamps (K = 6) the timestamp sums merged as log-sum-exp, and
+    the timestamp pick where that exceeds the text max, as the unsharded
+    kernel decides."""
+    m, idx = parts[..., 0], parts[..., 1]
+    top = m.amax(dim=0)
+    tok = torch.where(m == top, idx, float("inf")).amin(dim=0)
+    if parts.shape[-1] == 6:
+        mts, its, sts, mtx = (parts[..., k] for k in (2, 3, 4, 5))
+        top_ts = mts.amax(dim=0)
+        its_top = torch.where(mts == top_ts, its, float("inf")).amin(dim=0)
+        none = top_ts == float("-inf")
+        scaled = torch.where(mts == float("-inf"), 0.0,
+                             sts * torch.exp(mts - top_ts.masked_fill(
+                                 none, 0.0)))
+        lse = torch.where(none, float("-inf"),
+                          top_ts + torch.log(scaled.sum(dim=0)))
+        tok = torch.where(lse > mtx.amax(dim=0), its_top, tok)
+    return tok.to(torch.int32)
+
+
 def fused_greedy_step(hidden: torch.Tensor, table_t: torch.Tensor,
                       add_vec: torch.Tensor, *,
                       seen: Optional[torch.Tensor] = None,
                       ban: Optional[torch.Tensor] = None,
                       penalty: float = 1.0,
                       ts_bounds=None,
-                      timestamp_begin: Optional[int] = None) -> torch.Tensor:
-    """One greedy next-token step. Returns (B,) int32 token ids.
+                      timestamp_begin: Optional[int] = None,
+                      vocab_offset: int = 0,
+                      partials: bool = False) -> torch.Tensor:
+    """One greedy next-token step. Returns (B,) int32 token ids, or with
+    `partials` the (B, 2) / (B, 6) float32 row partials (`PARTS`) of a
+    vocab shard whose first column is id `vocab_offset` (`merge_partials`
+    joins the shards').
 
     hidden  (B, D)       float32 or bfloat16
     table_t (D, V_pad)   the transposed tied embedding in hidden's dtype,
@@ -243,13 +330,20 @@ def fused_greedy_step(hidden: torch.Tensor, table_t: torch.Tensor,
     ts_bounds            three (B,) int32 (lp.timestamp_row_bounds); with
                          timestamp_begin, applies the whisper timestamp
                          rules including the probability rule.
+    In the vocab-shard mode table_t, add_vec, seen and ban are the shard's
+    columns; ts_bounds and timestamp_begin stay global ids.
     CUDA tensors run the kernel; CPU tensors run the plain version."""
     _validate(hidden, table_t, add_vec, seen, ban, penalty, ts_bounds,
-              timestamp_begin)
+              timestamp_begin, vocab_offset, partials)
+    if vocab_offset and not partials:
+        raise ValueError("a vocab shard (vocab_offset) returns partials")
     if not hidden.is_cuda:
-        return fused_greedy_step_reference(
-            hidden, table_t, add_vec, seen=seen, ban=ban, penalty=penalty,
-            ts_bounds=ts_bounds, timestamp_begin=timestamp_begin)
+        kw = dict(seen=seen, ban=ban, penalty=penalty, ts_bounds=ts_bounds,
+                  timestamp_begin=timestamp_begin)
+        if partials:
+            return fused_greedy_step_partials_reference(
+                hidden, table_t, add_vec, vocab_offset=vocab_offset, **kw)
+        return fused_greedy_step_reference(hidden, table_t, add_vec, **kw)
     b, d = hidden.shape
     v_pad = table_t.shape[1]
     if hidden.dtype not in SOURCE or table_t.dtype != hidden.dtype:
@@ -272,7 +366,13 @@ def fused_greedy_step(hidden: torch.Tensor, table_t: torch.Tensor,
     if add.dtype != torch.float32:
         raise TypeError("add_vec must be float32")
     stream = _build.stream_ptr(hidden)
-    out = torch.empty((b,), dtype=torch.int32, device=hidden.device)
+    if partials:
+        out = torch.empty((b, 2 if ts_bounds is None else 6),
+                          dtype=torch.float32, device=hidden.device)
+        tail = (None, int(vocab_offset), _build.ptr(out))
+    else:
+        out = torch.empty((b,), dtype=torch.int32, device=hidden.device)
+        tail = (_build.ptr(out), 0, None)
     common = (_build.ptr(hidden), _build.ptr(table_t), _build.ptr(add),
               _build.ptr(seen), _build.ptr(ban), float(penalty),
               *(_build.ptr(x) for x in bounds), int(timestamp_begin or 0),
@@ -284,7 +384,7 @@ def fused_greedy_step(hidden: torch.Tensor, table_t: torch.Tensor,
         fn = _build.function(source, "fused_greedy_step_sm90",
                              _SM90_ARGTYPES)
         rc = fn(*common, plan.rows, plan.blocks, _build.ptr(pf),
-                _build.ptr(pi), _build.ptr(count), _build.ptr(out), stream)
+                _build.ptr(pi), _build.ptr(count), *tail, stream)
     else:
         if v_pad % TILE_V:
             raise ValueError(f"V_pad={v_pad} is not a multiple of {TILE_V}")
@@ -295,7 +395,8 @@ def fused_greedy_step(hidden: torch.Tensor, table_t: torch.Tensor,
                              4 * b * (v_pad // TILE_V))
         fn = _build.function(source, "fused_greedy_step", _ARGTYPES)
         rc = fn(*common, _DTYPES[hidden.dtype], _build.ptr(pf),
-                _build.ptr(pi), _build.ptr(out), stream)
-    _build.check(rc, "fused_greedy_step")
-    _build.STATS["fused_greedy_step"].launches += 1
+                _build.ptr(pi), *tail, stream)
+    name = "fused_greedy_step_partials" if partials else "fused_greedy_step"
+    _build.check(rc, name)
+    _build.STATS[name].launches += 1
     return out

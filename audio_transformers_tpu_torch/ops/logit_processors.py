@@ -67,16 +67,21 @@ def ngram_window_match(tokens: torch.Tensor, pos: int, n: int):
 
 
 def ngram_ban_mask(tokens: torch.Tensor, pos: int, n: int, width: int,
-                   finished: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   finished: Optional[torch.Tensor] = None, *,
+                   offset: Optional[int] = None) -> torch.Tensor:
     """(B, width) int8 0/1 mask of the ids that would complete an n-gram
     already present in tokens[:, :pos]. Rows already `finished` ban
     nothing (their next token is forced to pad anyway). The full banned
     set is built directly; it equals the reference's top-16 compaction
-    with its dense fallback."""
+    with its dense fallback. With an `offset` the mask is a vocab shard:
+    column j is id offset + j, and ids outside the shard ban nothing."""
     b = tokens.shape[0]
     flag, cont, _ = ngram_window_match(tokens, pos, n)
     if finished is not None:
         flag &= ~finished[:, None]
+    if offset is not None:
+        cont = cont - offset
+        flag &= (cont >= 0) & (cont < width)
     # unflagged windows scatter into a spare column that is cut off
     idx = torch.where(flag, cont, torch.full_like(cont, width))
     ban = torch.zeros((b, width + 1), dtype=torch.int8, device=tokens.device)

@@ -17,6 +17,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from audio_transformers_tpu_torch.parallel import tensor as tp
+
 Tensor = torch.Tensor
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -30,6 +32,20 @@ def linear(params: dict, x: Tensor) -> Tensor:
     y = F.linear(x, params["w"].to(x.dtype))
     if "b" in params:
         y = y.float() + params["b"].float()
+    return y.to(x.dtype)
+
+
+def row_linear(params: dict, x: Tensor, group=None) -> Tensor:
+    """`linear` whose weight is cut along its input over a model `group`
+    (tensor parallelism: x holds this rank's features): the partial
+    products summed over the group, then the bias, added once. `linear`
+    itself without a group."""
+    if group is None:
+        return linear(params, x)
+    y = tp.reduce_from_model(F.linear(x, params["w"].to(x.dtype)).float(),
+                          group)
+    if "b" in params:
+        y = y + params["b"].float()
     return y.to(x.dtype)
 
 
@@ -147,8 +163,23 @@ def dropout(generator: Optional[torch.Generator], x: Tensor, rate: float,
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
-def embedding_lookup(params: dict, ids: Tensor) -> Tensor:
-    return params["table"][ids]
+def embedding_lookup(params: dict, ids: Tensor, group=None,
+                     vocab: Optional[int] = None) -> Tensor:
+    """Rows `ids` of params["table"]. Under a model `group` the table is
+    this rank's rows of a `vocab`-id embedding cut on the padded vocab
+    (`parallel.tensor.vocab_shard`): each rank looks up the ids it holds,
+    zero elsewhere, and the all-reduce sums the one nonzero term of each
+    (exact)."""
+    table = params["table"]
+    if group is None:
+        return table[ids]
+    start, stop, _ = tp.vocab_shard(vocab, tp.model_size(group),
+                                    tp.model_rank(group))
+    local = ids - start
+    hit = (local >= 0) & (local < stop - start)
+    rows = table[local.clamp(0, max(stop - start - 1, 0))]
+    return tp.reduce_from_model(
+        torch.where(hit[..., None], rows, torch.zeros_like(rows)), group)
 
 
 def sinusoidal_embeddings(length: int, dim: int,
@@ -185,8 +216,8 @@ def multihead_attention(params: dict, q_in: Tensor, kv_in: Tensor, *,
                         num_heads: int, mask: Optional[Tensor] = None,
                         impl: str = "xla", causal: bool = False,
                         dropout_rate: float = 0.0,
-                        generator: Optional[torch.Generator] = None
-                        ) -> Tensor:
+                        generator: Optional[torch.Generator] = None,
+                        group=None) -> Tensor:
     """Self- or cross-attention, q_in (B, Tq, D), kv_in (B, Tk, D).
 
     impl="xla" is matmul + float32 softmax (the reference's XLA
@@ -196,8 +227,19 @@ def multihead_attention(params: dict, q_in: Tensor, kv_in: Tensor, *,
     semantics). impl="flash" projects straight to the head-major
     (B, H, T, hd) layout and runs the flash-attention kernels
     (`ops.attention.flash_attention`, forward and backward); it takes no
-    mask beyond `causal`."""
-    b, tq, d = q_in.shape
+    mask beyond `causal`.
+
+    With a model `group` (tensor parallelism) the projections are this
+    rank's shards: q/k/v hold its num_heads / t heads (the head width
+    comes from them) and o its input columns, so the o projection's
+    partial sums are all-reduced before its bias (`row_linear`)."""
+    b, tq, _ = q_in.shape
+    if group is not None:
+        num_heads //= tp.model_size(group)
+        self_attn = kv_in is q_in
+        q_in = tp.copy_to_model(q_in, group)
+        kv_in = q_in if self_attn else tp.copy_to_model(kv_in, group)
+    d = params["q"]["w"].shape[0]       # this rank's heads x head width
     hd = d // num_heads
 
     def heads(lin, x):   # (B, T, D) -> (B, H, T, hd)
@@ -213,7 +255,8 @@ def multihead_attention(params: dict, q_in: Tensor, kv_in: Tensor, *,
         from audio_transformers_tpu_torch.ops.attention import \
             flash_attention
         out = flash_attention(q, k, v, causal=causal)     # (B, H, Tq, hd)
-        return linear(params["o"], out.transpose(1, 2).reshape(b, tq, d))
+        return row_linear(params["o"], out.transpose(1, 2).reshape(b, tq, d),
+                          group)
     if impl != "xla":
         raise ValueError(f"unknown attention impl {impl!r}")
     if causal and mask is None:
@@ -227,4 +270,5 @@ def multihead_attention(params: dict, q_in: Tensor, kv_in: Tensor, *,
     if dropout_rate > 0.0 and generator is not None:
         probs = dropout(generator, probs, dropout_rate, training=True)
     out = torch.matmul(probs.to(v.dtype), v)              # (B, H, Tq, hd)
-    return linear(params["o"], out.transpose(1, 2).reshape(b, tq, d))
+    return row_linear(params["o"], out.transpose(1, 2).reshape(b, tq, d),
+                      group)

@@ -96,6 +96,31 @@ def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+# (count, index) on the data axis of the last tensor-parallel mesh built
+# in this process (`parallel.mesh.build_mesh`); None: every process is a
+# replica of its own
+_DATA_AXIS: Optional[tuple] = None
+
+
+def set_data_axis(axis: Optional[tuple]) -> None:
+    """Records this process's (count, index) on a tensor-parallel mesh's
+    data axis, or None; `data_count` and `data_index` read it."""
+    global _DATA_AXIS
+    _DATA_AXIS = axis
+
+
+def data_count() -> int:
+    """The replicas that split each global batch: the processes, or on a
+    tensor-parallel mesh its data axis (the processes of one model group
+    share their rows)."""
+    return _DATA_AXIS[0] if _DATA_AXIS is not None else process_count()
+
+
+def data_index() -> int:
+    """This process's place among `data_count()` replicas."""
+    return _DATA_AXIS[1] if _DATA_AXIS is not None else process_index()
+
+
 def process_shard(num_samples: int) -> range:
     """This process's contiguous shard of a dataset's index space; the
     last process takes the remainder."""

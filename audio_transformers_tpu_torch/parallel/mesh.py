@@ -5,10 +5,14 @@ The data-parallel half of the reference's
 devices and lets XLA insert the collectives its shardings need; the port
 runs one process per device and calls them itself:
 
-  - `build_mesh`: the "data" axis is the process group's world size; a
-    "model" axis over 1 (tensor parallelism) is not ported and raises;
-  - `replicated`: parameters and state broadcast from rank 0, so every
-    replica starts equal;
+  - `build_mesh`: a ("data", d) x ("model", t) grid of the processes,
+    rank = data_index * t + model_index (the model axis minor, as the
+    reference's `build_mesh` reshapes its devices). `Mesh.size/rank/group`
+    are the data axis (the replicas that split the batch); the model axis
+    (`model_size/model_rank/model_group`) is tensor parallelism, whose
+    layout and collectives are `parallel/tensor.py`;
+  - `replicated`: parameters and state broadcast from the data group's
+    first rank, so every replica starts equal;
   - `average_gradients`: one all-reduce of every gradient in a flat
     bucket, divided by the world size, before the optimizer clips and
     steps, so every replica takes the same update;
@@ -34,10 +38,21 @@ from audio_transformers_tpu_torch.parallel import distributed
 @dataclass(frozen=True)
 class Mesh:
     """`size` processes on the "data" axis, of which this is `rank`;
-    `group` is their process group, None in a process that joined none."""
+    `group` is their process group, None where the axis has one process.
+    `model_size` processes on the "model" axis share this process's rows
+    (its tensor-parallel peers), of which this is `model_rank`;
+    `model_group` is theirs, None at model_size 1."""
     size: int
     rank: int
     group: Optional[object] = None
+    model_size: int = 1
+    model_rank: int = 0
+    model_group: Optional[object] = None
+
+    @property
+    def writer(self) -> bool:
+        """True on global rank 0 alone, the process that writes files."""
+        return self.rank == 0 and self.model_rank == 0
 
 
 def build_mesh(shape: Sequence[Tuple[str, int]] = (("data", -1),)) -> Mesh:
@@ -56,25 +71,37 @@ def build_mesh(shape: Sequence[Tuple[str, int]] = (("data", -1),)) -> Mesh:
     if -1 in sizes and not world % known:
         sizes[sizes.index(-1)] = world // known
     axes = dict(zip(names, sizes))
-    if axes.get("model", 1) not in (1, -1):
-        raise NotImplementedError(
-            f"mesh {axes}: tensor parallelism (a 'model' axis over 1) is "
-            "not ported (ROADMAP.md §1, its last module item)")
     if -1 in sizes:
         raise ValueError(
             f"{world} processes not divisible by fixed axes {known}")
     if math.prod(sizes) != world:
         raise ValueError(f"mesh {axes} needs {math.prod(sizes)} "
                          f"processes, have {world}")
-    return Mesh(size=world, rank=distributed.process_index(),
-                group=dist.group.WORLD if dist.is_initialized() else None)
+    t = axes.get("model", 1)
+    d = world // t
+    rank = distributed.process_index()
+    if t == 1:
+        group = dist.group.WORLD if dist.is_initialized() else None
+        distributed.set_data_axis(None)     # every process is a replica
+        return Mesh(size=d, rank=rank, group=group)
+    # every process creates every group, in the same order
+    data_groups = [dist.new_group([di * t + mi for di in range(d)])
+                   if d > 1 else None for mi in range(t)]
+    model_groups = [dist.new_group([di * t + mi for mi in range(t)])
+                    for di in range(d)]
+    di, mi = divmod(rank, t)
+    distributed.set_data_axis((d, di))
+    return Mesh(size=d, rank=di, group=data_groups[mi], model_size=t,
+                model_rank=mi, model_group=model_groups[di])
 
 
 def replicated(tree, mesh: Mesh):
     """Overwrites every tensor of `tree` (nested dicts and lists) in place
-    with rank 0's and returns the tree."""
+    with the data group's first rank's and returns the tree (a model
+    rank's shards come from the first replica of the same shard)."""
     if mesh.group is None:
         return tree
+    src = mesh.model_rank   # global rank of data index 0, model index r
 
     def walk(t):
         if isinstance(t, dict):
@@ -85,7 +112,7 @@ def replicated(tree, mesh: Mesh):
                 walk(v)
         elif isinstance(t, torch.Tensor):
             with torch.no_grad():
-                dist.broadcast(t, src=0, group=mesh.group)
+                dist.broadcast(t, src=src, group=mesh.group)
 
     walk(tree)
     return tree

@@ -29,7 +29,9 @@ dropout and SpecAugment draw for the global batch and keep this rank's
 rows (`common.rank_generator`), the gradients are averaged before Adam
 steps, and the eval sums and train metrics are reduced over the ranks,
 so a step equals one process's step on the global batch up to sum
-order; rank 0 alone writes.
+order; rank 0 alone writes. On a mesh with a "model" axis every model
+rank holds a replica and its data rank's rows, as in the reference
+(whose classifier trainer replicates its parameters).
 """
 
 from __future__ import annotations
@@ -150,7 +152,7 @@ def train_classifier(model_cfg: UrbanSoundConfig, mel_cfg: MelConfig,
     (`build_mesh(train_cfg.mesh_shape)` must cover the group)."""
     device = resolve_device(device)
     mesh = build_mesh(train_cfg.mesh_shape)
-    writer = mesh.rank == 0
+    writer = mesh.writer
     if init_params is None:
         init_params = us.init(model_cfg, torch.Generator().manual_seed(
             train_cfg.seed))

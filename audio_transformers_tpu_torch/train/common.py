@@ -63,8 +63,9 @@ def mean_over_ranks(metrics: Dict[str, torch.Tensor], mesh: Mesh
 
 
 def metric_logger(mesh: Mesh, **kwargs) -> MetricLogger:
-    """A MetricLogger on rank 0; elsewhere one that writes nothing."""
-    if mesh.rank == 0:
+    """A MetricLogger on global rank 0; elsewhere one that writes
+    nothing."""
+    if mesh.writer:
         return MetricLogger(**kwargs)
     return MetricLogger(console=False)
 
@@ -74,16 +75,19 @@ def host_copy(tree):
     return cp.map_tensors(tree, lambda t: t.detach().cpu().clone())
 
 
-def restore_into(params, opt, resume_ckpt: Checkpointer) -> tuple:
+def restore_into(params, opt, resume_ckpt: Checkpointer, *,
+                 shard=None) -> tuple:
     """Loads the resume checkpointer's latest step into the live `params`
     (copied in place: `opt` holds references to these leaves) and `opt`;
-    returns (tree, metadata, step)."""
+    returns (tree, metadata, step). Under tensor parallelism `shard` cuts
+    the checkpoint's whole tree to this rank's shards (and `opt` cuts its
+    moments: `Optimizer.load_full_state_dict`)."""
     tree, meta, step = resume_ckpt.restore()
-    check_structure(tree["params"], params,
-                    f"{resume_ckpt.directory} step {step}")
+    src_tree = tree["params"] if shard is None else shard(tree["params"])
+    check_structure(src_tree, params, f"{resume_ckpt.directory} step {step}")
     with torch.no_grad():
         for (_, t), (_, src) in zip(cp.leaves_with_path(params),
-                                    cp.leaves_with_path(tree["params"])):
+                                    cp.leaves_with_path(src_tree)):
             t.copy_(src)
-    opt.load_state_dict(tree["opt_state"])
+    opt.load_full_state_dict(tree["opt_state"])
     return tree, meta or {}, step

@@ -18,6 +18,13 @@ chain; this builds the same update from `torch.optim`:
 Only trainable leaves are optimized: the frozen encoder positional table
 (`core.params.FROZEN`) takes neither an update nor weight decay, as in the
 reference, where its gradient is stopped and the decay mask spares it.
+
+Under tensor parallelism (`model_group`, with `axes` the tree of
+`parallel.tensor.Split`s the parameters were cut by) the clip's global
+norm is the whole tree's: the squares of the cut leaves are summed over
+the model group and every whole (replicated) leaf counts once.
+`full_state_dict` and `load_full_state_dict` move the moments as the
+whole tree's, so a checkpoint does not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -25,10 +32,12 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from audio_transformers_tpu_torch.core.config import OptimizerConfig
 from audio_transformers_tpu_torch.core.params import (FROZEN,
                                                       leaves_with_path)
+from audio_transformers_tpu_torch.parallel import tensor as tp
 
 
 def frozen_leaf_decay_mask(params, *, frozen=FROZEN) -> dict:
@@ -74,14 +83,21 @@ class Optimizer:
     of this update and applies it; `zero_grad()` clears the gradients."""
 
     def __init__(self, cfg: OptimizerConfig, params,
-                 total_steps: Optional[int] = None, decay_mask=None):
+                 total_steps: Optional[int] = None, decay_mask=None, *,
+                 model_group=None, axes=None):
         if cfg.name not in ("adam", "adamw"):
             raise ValueError(f"unknown optimizer {cfg.name!r}")
         self.cfg = cfg
         self.schedule = learning_rate_schedule(cfg, total_steps)
         self.count = 0
-        self.params = [t for _, t in leaves_with_path(params)
-                       if t.requires_grad]
+        self.model_group = model_group
+        splits = (tp.split_leaves(axes) if axes is not None
+                  else [None] * len(leaves_with_path(params)))
+        trainable = [(t, s) for (_, t), s in zip(leaves_with_path(params),
+                                                 splits) if t.requires_grad]
+        self.params = [t for t, _ in trainable]
+        # id(param) -> its Split, for the leaves the model axis cuts
+        self.splits = {id(t): s for t, s in trainable if s is not None}
         if not self.params:
             raise ValueError("no trainable leaves (see core.params."
                              "set_trainable)")
@@ -116,9 +132,23 @@ class Optimizer:
         self.opt.zero_grad(set_to_none=True)
 
     @torch.no_grad()
+    def grad_norm(self) -> torch.Tensor:
+        """The global gradient norm of the whole tree (a device scalar)."""
+        sq = [[], []]    # whole leaves, cut leaves
+        for p in self.params:
+            if p.grad is not None:
+                sq[id(p) in self.splits].append((p.grad.float() ** 2).sum())
+        zero = torch.zeros((), device=self.params[0].device)
+        whole, cut = (sum(x) if x else zero for x in sq)
+        if self.model_group is not None and sq[1]:
+            cut = cut.clone()
+            dist.all_reduce(cut, group=self.model_group)
+        return torch.sqrt(whole + cut)
+
+    @torch.no_grad()
     def _clip(self, max_norm: float) -> None:
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+        norm = self.grad_norm()
         for g in grads:
             g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
 
@@ -139,16 +169,55 @@ class Optimizer:
         self.opt.load_state_dict(state["torch"])
         self.count = int(state["count"])
 
+    def _order(self) -> list:
+        """The parameters in the order of the torch state's indices."""
+        return [p for g in self.opt.param_groups for p in g["params"]]
+
+    def full_state_dict(self) -> dict:
+        """`state_dict` with the moments of the cut leaves gathered over
+        the model group: the state of the whole tree (every rank of the
+        group must call it)."""
+        state = self.state_dict()
+        if self.model_group is None:
+            return state
+        moments = state["torch"]["state"]
+        for i, p in enumerate(self._order()):
+            split = self.splits.get(id(p))
+            if split is not None and i in moments:
+                moments[i] = {k: (tp.gather_params(v, self.model_group, split)
+                                  if v.dim() else v)
+                              for k, v in moments[i].items()}
+        return state
+
+    def load_full_state_dict(self, state: dict) -> None:
+        """`load_state_dict` of a whole tree's state (`full_state_dict`),
+        each moment of a cut leaf cut to this rank's shard."""
+        if self.model_group is not None:
+            t = tp.model_size(self.model_group)
+            r = tp.model_rank(self.model_group)
+            moments = state["torch"]["state"]
+            for i, p in enumerate(self._order()):
+                split = self.splits.get(id(p))
+                if split is not None and i in moments:
+                    moments[i] = {k: (tp.shard_params(v, t, r, split)
+                                      if v.dim() else v)
+                                  for k, v in moments[i].items()}
+        self.load_state_dict(state)
+
 
 def build_optimizer(cfg: OptimizerConfig, params,
                     total_steps: Optional[int] = None,
-                    decay_mask=None) -> Optimizer:
+                    decay_mask=None, *, model_group=None,
+                    axes=None) -> Optimizer:
     """The optimizer for the trainable leaves of `params`. For
     "linear_warmup_decay", `total_steps` is required. `decay_mask` (a tree
     of bools, or a params -> tree callable such as
     `frozen_leaf_decay_mask`) limits adamw's weight decay to the marked
-    leaves."""
-    return Optimizer(cfg, params, total_steps, decay_mask)
+    leaves. Under tensor parallelism `params` are this rank's shards,
+    `axes` the tree of Splits that cut them and `model_group` the model
+    axis's group (the clip's norm and `full_state_dict` need them)."""
+    return Optimizer(cfg, params, total_steps, decay_mask,
+                     model_group=model_group, axes=axes)
 
 
 def set_learning_rate(opt: Optimizer, lr: float) -> Optimizer:

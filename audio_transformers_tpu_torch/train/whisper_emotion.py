@@ -35,6 +35,15 @@ batch (`data.loader.Batcher`), the parameters start from rank
 SpecAugment's masks are drawn for the global batch and sliced
 (`common.rank_generator`), and the eval sums and train metrics are
 reduced over the ranks; rank 0 alone writes.
+
+Tensor parallelism: with a "model" axis over 1 in `mesh_shape`, each
+model rank holds its shards of the parameters (`emotion.param_axes`,
+`parallel/tensor.py`) and the optimizer moments of its shards; the step
+runs the sharded forward (the logits gathered over the vocab shards, so
+`dual_loss` runs as it is), the gradients are averaged over the data
+axis only, and the clip's norm is the whole tree's. The checkpoints hold
+the whole tree (gathered on every rank, written by rank 0), so their
+format and a resume do not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ from audio_transformers_tpu_torch.core.metrics import StepTimer
 from audio_transformers_tpu_torch.models.whisper import emotion as emo
 from audio_transformers_tpu_torch.ops import specaugment as sa
 from audio_transformers_tpu_torch.ops.mel import log_mel
+from audio_transformers_tpu_torch.parallel import tensor as tp
 from audio_transformers_tpu_torch.parallel.mesh import (Mesh,
                                                         all_reduce_sum,
                                                         average_gradients,
@@ -132,7 +142,9 @@ def make_steps(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
     On a `mesh` of several ranks (`parallel.mesh`), train_step takes
     this rank's rows, a `nn.RowShard` generator, and averages the
     gradients over the ranks before the optimizer steps; its metrics are
-    this rank's share (`common.mean_over_ranks` averages them)."""
+    this rank's share (`common.mean_over_ranks` averages them). With a
+    model axis the parameters are this rank's shards (`emo.param_axes`)
+    and `opt` is built over them with the model group and the axes."""
     device = torch.device(device)
     compute_dtype = DTYPES[train_cfg.compute_dtype]
     pad = cfg.whisper.pad_token_id
@@ -149,7 +161,8 @@ def make_steps(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
         if train_cfg.spec_augment and generator is not None:
             mel = sa.spec_augment(generator, mel)
         return emo.forward_train(params, cfg, mel, batch["labels"][:, :-1],
-                                 remat=remat, attn_impl=attn)
+                                 remat=remat, attn_impl=attn,
+                                 model_group=mesh.model_group)
 
     def train_step(params, batch, generator=None):
         logits, emotion_logits = forward(params, batch, attn_impl, generator,
@@ -230,17 +243,27 @@ def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
     (`build_mesh(train_cfg.mesh_shape)` must cover the group)."""
     device = resolve_device(device)
     mesh = build_mesh(train_cfg.mesh_shape)
-    writer = mesh.rank == 0
+    writer = mesh.writer
     total_steps = train_batcher.steps_per_epoch * train_cfg.num_epochs
     if init_params is None:
         init_params = emo.init(cfg, torch.Generator().manual_seed(
             train_cfg.seed))
-    params = cp.set_trainable(replicated(cp.map_tensors(
-        init_params, lambda t: t.detach().to(device, torch.float32).clone()),
-        mesh))
+    axes = (emo.param_axes(init_params, cfg, mesh.model_size)
+            if mesh.model_group is not None else None)
+    params = cp.map_tensors(
+        init_params, lambda t: t.detach().to(device, torch.float32).clone())
+    if axes is not None:
+        params = tp.shard_params(params, mesh.model_size, mesh.model_rank,
+                                 axes)
+    params = cp.set_trainable(replicated(params, mesh))
     opt = build_optimizer(train_cfg.optimizer, params,
                           total_steps=total_steps,
-                          decay_mask=frozen_leaf_decay_mask)
+                          decay_mask=frozen_leaf_decay_mask,
+                          model_group=mesh.model_group, axes=axes)
+
+    def whole(tree):   # the whole tree, on every model rank
+        return (tp.gather_params(tree, mesh.model_group, axes)
+                if axes is not None else tree)
     train_step, eval_step = make_steps(cfg, mel_cfg, train_cfg, opt, device,
                                        mesh)
 
@@ -266,7 +289,10 @@ def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
     step = 0
     start_epoch = 0
     if resume_ckpt is not None and resume_ckpt.latest_step() is not None:
-        _, meta, step = restore_into(params, opt, resume_ckpt)
+        _, meta, step = restore_into(
+            params, opt, resume_ckpt,
+            shard=None if axes is None else lambda tree: tp.shard_params(
+                tree, mesh.model_size, mesh.model_rank, axes))
         start_epoch = meta.get("epoch", 0)
         best_val_loss = meta.get("best_val_loss", float("inf"))
         if ckpt.best_step() is not None:
@@ -311,7 +337,7 @@ def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
         log.log(row, step=step)
         if val["loss"] < best_val_loss:
             best_val_loss = val["loss"]
-            best_params = host_copy(params)
+            best_params = host_copy(whole(params))
             if ckpt is not None and writer:
                 ckpt.save(step, {"params": best_params},
                           metadata={"cfg": cfg.to_json(),
@@ -320,14 +346,17 @@ def train_whisper_emotion(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
                                     "val_loss": val["loss"],
                                     "style_to_idx": style_to_idx},
                           best_metric=val["loss"])
+        if resume_ckpt is not None:
+            state = {"params": whole(params),
+                     "opt_state": opt.full_state_dict()}
         if resume_ckpt is not None and writer:
-            resume_ckpt.save(step, {"params": params,
-                                    "opt_state": opt.state_dict()},
+            resume_ckpt.save(step, state,
                              metadata={"epoch": epoch + 1,
                                        "best_val_loss": best_val_loss})
 
     log.finish()
     if best_params is None:   # no epoch improved (e.g. none ran)
-        best_params = host_copy(params)
-    return {"params": params, "best_params": best_params, "optimizer": opt,
+        best_params = host_copy(whole(params))
+    return {"params": whole(params), "best_params": best_params,
+            "optimizer": opt,
             "history": history, "best_val_loss": best_val_loss}

@@ -156,7 +156,24 @@ each raising on failure:
      epoch of each trainer), held to the same cases in one process on
      the whole batch; every rank launches K3, and K4 for whisper;
   28. `entry.entry()`'s forward (whisper-tiny, emotion head, log-mel) on
-     the card: K3 launched, finite outputs of the expected shapes.
+     the card: K3 launched, finite outputs of the expected shapes;
+  29. K2's vocab-shard mode (tensor parallelism) at whisper-tiny width,
+     bf16, on t = 2 and 4 shards of the padded vocab (26112 and 13056
+     ids), B = 1, 4, 16, 128, penalty+ban and timestamps: one launch a
+     shard, each shard's partials beside its plain version's, and the
+     tokens `merge_partials` makes of them equal to the unsharded K2's on
+     the rows `_k2_decidable` passes; the device time of a shard's call
+     beside its bound (its table bytes over 3.35 TB/s);
+  30. tensor parallelism at whisper-tiny width (6 heads, 3 a rank) in two
+     gloo processes on the one card (scripts/tp_multicard.py's
+     `run_mesh`, one launch): the greedy timestamped decode of a
+     12 s clip in float32, token-equal to one process, and in bf16,
+     token-equal up to the first position whose one-process margin lies
+     under the bound the measured hidden difference allows
+     (`tp_multicard.hold_decode`); both ranks launch K1, K2's shard mode
+     and K3, and K1 is held to its plain version at B * 3 rows; one TP
+     train step (batch 2, float32, flash), its loss within 1e-6 relative
+     of one process's, K3 and K4 launched on both ranks.
 
 Tolerances (kernel vs plain version, on the card):
   K1 decode_cross_attention: 1e-5 abs in float32 (sum order only);
@@ -228,7 +245,11 @@ beside phase 26's step times and `average_gradients` time (in a group
 of one: the flatten, divide and copy back; NCCL over one rank launches
 no kernel) and phase 27's errors;
 every K4 entry's `launches_remat` (phase 25's step with remat), and
-K4a's `remat_*` fields (phase 25's peak MiB and ms per step).
+K4a's `remat_*` fields (phase 25's peak MiB and ms per step). The entry
+`fused_greedy_step_partials` is K2's vocab-shard mode: its launches on
+rank 0 of phase 30's bf16 decode, phase 29's times at t = 2 and B = 4
+(and `*_t{2,4}_b{1,4,16,128}`), and phase 30's results (`tp_decode`,
+`tp_train`); K1's and K3's entries carry `launches_tp_rank0`.
 The last line is {"ok": true, "device": {...}}. Nothing of JAX is
 imported.
 """
@@ -260,6 +281,8 @@ PROFILE_TRIES = 3
 REPLACES = {
     "decode_cross_attention": "audio_transformers_tpu/ops/decode_attention.py:100",
     "fused_greedy_step": "audio_transformers_tpu/ops/decode_logits.py:82",
+    "fused_greedy_step_partials":
+        "audio_transformers_tpu/ops/decode_logits.py:82",
     "log_mel": "audio_transformers_tpu/ops/mel_pallas.py:67",
     "flash_attention_fwd": "audio_transformers_tpu/ops/attention.py:42",
     "flash_attention_bwd_dq": "audio_transformers_tpu/ops/attention.py:147",
@@ -269,6 +292,7 @@ REPLACES = {
 SOURCES = {
     "decode_cross_attention": "audio_transformers_tpu_torch/csrc/decode_attention.cu",
     "fused_greedy_step": "audio_transformers_tpu_torch/csrc/decode_logits_sm90.cu",
+    "fused_greedy_step_partials": "audio_transformers_tpu_torch/csrc/decode_logits_sm90.cu",
     "log_mel": "audio_transformers_tpu_torch/csrc/mel.cu",
     "flash_attention_fwd": "audio_transformers_tpu_torch/csrc/flash_attention_sm90.cu",
     "flash_attention_bwd_dq": "audio_transformers_tpu_torch/csrc/flash_attention_sm90.cu",
@@ -2651,6 +2675,161 @@ def check_entry(torch, _build):
         f"{tuple(emotion.shape)}, launches {stats}")
 
 
+# ---------------------------------------------------------------------------
+# phases 29-30: tensor parallelism
+# ---------------------------------------------------------------------------
+
+# phase 29: a shard's partials against its plain version's, by row: the
+# max (float32 sums of exact bf16 products in another order, at logits of
+# about 0.4) and, in ts mode, the timestamp sum of exp relative to it
+# (the same order noise through exp, on sums of up to 1501 terms)
+K2_PART_TOL, K2_SUM_RTOL = 1e-4, 1e-4
+
+
+def check_k2_shards(torch, dl, lp, decode, cfg, gen, smi):
+    """Phase 29: K2's vocab-shard mode at whisper-tiny width (bf16) on t =
+    2 and 4 shards, B = 1, 4, 16, 128, both modes; returns its numbers
+    by (t, B) and the largest partial error."""
+    from audio_transformers_tpu_torch.ops import _build
+    dev = "cuda"
+    v, d = cfg.vocab_size, cfg.d_model
+    v_pad = dl.pad_vocab(v)
+    table = torch.randn((v, d), generator=gen, device=dev) * 0.02
+    table_t = torch.zeros((d, v_pad), device=dev, dtype=torch.bfloat16)
+    table_t[:, :v] = table.t().bfloat16()
+    add = lp.suppress_vector(v_pad, decode.default_suppress_ids(cfg),
+                             vocab=v, device=dev)
+    tb = cfg.timestamp_begin_id
+    stats = _build.STATS["fused_greedy_step_partials"]
+    out, worst, below = {}, 0.0, 0
+    for b in (1, 4, 16, 128):
+        hidden = torch.randn((b, d), generator=gen, device=dev).bfloat16()
+        seen = (torch.rand((b, v_pad), generator=gen, device=dev) < 0.002
+                ).to(torch.int8)
+        ban = (torch.rand((b, v_pad), generator=gen, device=dev) < 0.0005
+               ).to(torch.int8)
+        hist = torch.randint(0, tb - 1000, (b, 20), generator=gen,
+                             device=dev)
+        ts_tok = torch.randint(tb, tb + 1000, (b, 2), generator=gen,
+                               device=dev)
+        state = torch.arange(b, device=dev) % 3
+        hist[state == 0, 12:14] = ts_tok[state == 0]
+        hist[state == 1, 13] = ts_tok[state == 1, 0]
+        hist[state == 2, 11] = ts_tok[state == 2, 0]
+        bounds = lp.timestamp_row_bounds(hist, 14, begin_index=3,
+                                         timestamp_begin=tb,
+                                         eos_token_id=cfg.eos_token_id)
+        modes = {"penalty+ban": {"penalty": 1.15},
+                 "ts": {"penalty": 1.15, "ts_bounds": bounds,
+                        "timestamp_begin": tb}}
+        for t in (2, 4):
+            w = v_pad // t
+            shards = [{"table_t": table_t[:, r * w:(r + 1) * w].contiguous(),
+                       "add": add[r * w:(r + 1) * w].contiguous(),
+                       "seen": seen[:, r * w:(r + 1) * w].contiguous(),
+                       "ban": ban[:, r * w:(r + 1) * w].contiguous(),
+                       "vocab_offset": r * w} for r in range(t)]
+            for name, kw in modes.items():
+                def call(sh, fn=dl.fused_greedy_step, **extra):
+                    return fn(hidden, sh["table_t"], sh["add"],
+                              seen=sh["seen"], ban=sh["ban"],
+                              vocab_offset=sh["vocab_offset"], **kw, **extra)
+                before = stats.launches
+                parts = torch.stack([call(sh, partials=True)
+                                     for sh in shards])
+                require(stats.launches == before + t,
+                        f"K2 shards t={t} B={b}: one launch a shard")
+                again = torch.stack([call(sh, partials=True)
+                                     for sh in shards])
+                plain = torch.stack([call(
+                    sh, fn=dl.fused_greedy_step_partials_reference)
+                    for sh in shards])
+                got = dl.merge_partials(parts)
+                whole = dl.fused_greedy_step(hidden, table_t, add, seen=seen,
+                                             ban=ban, **kw)
+                l = dl.processed_logits(hidden, table_t, add, seen=seen,
+                                        ban=ban, **kw)
+                ok = _k2_decidable(l, "ts_bounds" in kw, tb)
+                torch.cuda.synchronize()
+                err = float((parts[..., 0] - plain[..., 0]).abs().max())
+                require(err <= K2_PART_TOL, f"K2 shards t={t} B={b} {name}: "
+                        f"partial max off by {err}")
+                if "ts_bounds" in kw:
+                    ts_on = plain[..., 2] > lp.NEG_INF
+                    rel = ((parts[..., 4] - plain[..., 4]).abs()
+                           / plain[..., 4].abs().clamp(min=1e-30))[ts_on]
+                    require(not rel.numel() or float(rel.max())
+                            <= K2_SUM_RTOL,
+                            f"K2 shards t={t} B={b}: timestamp sums")
+                require(torch.equal(parts, again), f"K2 shards t={t} B={b} "
+                        f"{name}: two launches differ")
+                require(torch.equal(got[ok], whole[ok]),
+                        f"K2 shards t={t} B={b} {name}: merged tokens "
+                        f"differ from the unsharded K2's")
+                worst, below = max(worst, err), below + int((~ok).sum())
+            sh = shards[0]
+            kw = modes["penalty+ban"]
+
+            def kernel():
+                return dl.fused_greedy_step(
+                    hidden, sh["table_t"], sh["add"], seen=sh["seen"],
+                    ban=sh["ban"], vocab_offset=0, partials=True, **kw)
+            ms = time_ms(kernel)
+            plain_ms = time_ms(lambda: dl.fused_greedy_step_partials_reference(
+                hidden, sh["table_t"], sh["add"], seen=sh["seen"],
+                ban=sh["ban"], **kw))
+            dev_ms, per_call = device_profile(kernel)
+            require(per_call == 1, f"K2 shard t={t} B={b}: {per_call} "
+                    "kernels per call")
+            # the shard's table, bias and mask columns and hidden, read
+            # once; two float32 partials a row written
+            bnd = bound(nbytes(hidden, sh["table_t"], sh["add"], sh["seen"],
+                               sh["ban"]) + 8 * b,
+                        2 * b * d * w, BF16_FLOPS)
+            log(f"K2 shard t={t} B={b} ({smi}): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, device {dev_ms:.4f} ms in one kernel, "
+                f"bound {bnd[0]:.4f} ms ({bnd[1]}, "
+                f"{100 * bnd[0] / dev_ms:.1f}% of it)")
+            out[(t, b)] = {"ms": ms, "plain_ms": plain_ms,
+                           "device_ms": dev_ms, "bound_ms": bnd[0],
+                           "bound_by": bnd[1], "library_ms": None}
+    log(f"K2 shard mode: partial maxima within {worst:.2e} of the plain "
+        f"version's; merged tokens equal to the unsharded K2's on every "
+        f"decidable row ({below} rows below the {K2_GAP} gap not compared)")
+    return out, worst
+
+
+def check_tp(torch, smi):
+    """Phase 30: tensor parallelism at whisper-tiny width in two gloo
+    processes on the one card (NCCL refuses two ranks on one device):
+    scripts/tp_multicard.py's decode (float32 and bf16) and train-step
+    checks on a model:2 mesh. Returns its numbers."""
+    scripts = os.path.join(HERE, "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import tp_multicard as tpm
+    out = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        t0 = time.perf_counter()
+        # one launch: both decodes (not timed: gloo stages every
+        # collective through the host here) and the train step
+        decodes, train = tpm.run_mesh(out, "model2", "tiny",
+                                      ["float32", "bfloat16"], "cuda:0",
+                                      backend="gloo", timed=False,
+                                      train=True)
+        wall = time.perf_counter() - t0
+    except AssertionError as e:
+        require(False, f"phase 30: {e}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    for r in decodes:
+        log(f"TP decode ({smi}; model:2, two gloo ranks on one card, "
+            f"{r['dtype']}): {json.dumps(r)}")
+    log(f"TP train step (model:2, float32, flash): {json.dumps(train)}; "
+        f"phase 30 took {wall:.1f} s")
+    return decodes, train
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2870,6 +3049,16 @@ def main() -> int:
     # 28. entry.entry()'s forward on the card
     check_entry(torch, _build)
 
+    # 29. K2's vocab-shard mode against its plain version
+    t0 = time.perf_counter()
+    k2_shards, err["fused_greedy_step_partials"] = check_k2_shards(
+        torch, dl, lp, decode, w, torch.Generator(device="cuda").manual_seed(
+            29), smi[0])
+
+    # 30. tensor parallelism: decode and a train step in two ranks
+    tp_decodes, tp_train = check_tp(torch, smi[0])
+    log(f"phases 29-30: {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     for name in SERVING:
         t4, t16 = times[4][name], times[16][name]
@@ -2935,6 +3124,24 @@ def main() -> int:
         "beam_step_ms": {str(b): v["k5"] for b, v in beam_ms.items()},
         "beam_step_plain_ms": {str(b): v["plain"]
                                for b, v in beam_ms.items()}})
+    # K2's vocab-shard mode: launches on phase 30's main path (rank 0 of
+    # the bf16 decode), times of phase 29 (t = 2, B = 4 the main fields)
+    bf16 = next(r for r in tp_decodes if r["dtype"] == "bfloat16")
+    kernels.append({
+        "name": "fused_greedy_step_partials", "route": "cuda",
+        "source": SOURCES["fused_greedy_step_partials"],
+        "replaces": REPLACES["fused_greedy_step_partials"],
+        "launches": bf16["launches_rank0"]["fused_greedy_step_partials"],
+        "max_abs_err": err["fused_greedy_step_partials"],
+        **k2_shards[(2, 4)],
+        **{f"{k}_t{t}_b{b}": v for (t, b), res in k2_shards.items()
+           for k, v in res.items() if k != "library_ms"},
+        "tp_decode": tp_decodes, "tp_train": tp_train})
+    for entry in kernels:
+        # phase 30's launches on rank 0 (K1, K3 of the decode)
+        if entry["name"] in ("decode_cross_attention", "log_mel"):
+            entry["launches_tp_rank0"] = bf16["launches_rank0"][
+                entry["name"]]
     log(f"K2 rows below the top-2 gap {K2_GAP} (not compared): {below}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

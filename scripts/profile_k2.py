@@ -50,6 +50,14 @@ REPS = 50
 FLUSH_BYTES = 256 << 20
 
 
+# the earlier checkout's `fused_greedy_step` entry: hidden, table_t, add,
+# seen, ban; penalty; tlo, thi, tcap; tb, batch, dim, vocab, dtype;
+# partials (float, int), out; stream (no vocab-shard arguments)
+OTHER_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_float]
+                  + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                  + [ctypes.c_void_p] * 4)
+
+
 def build_other(_build, other: str, name: str = "decode_logits"
                 ) -> ctypes.CDLL:
     """The other checkout's csrc/<name>.cu, built into this checkout's
@@ -117,7 +125,7 @@ def main() -> int:
     other = None
     if args.other:
         other = build_other(_build, args.other).fused_greedy_step
-        other.argtypes = dl._ARGTYPES
+        other.argtypes = OTHER_ARGTYPES
         other.restype = ctypes.c_int
 
     cfg = WhisperConfig.tiny()

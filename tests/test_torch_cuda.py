@@ -324,6 +324,50 @@ def test_k2_matches_plain(cuda, b, d, dtype, mode):
     assert torch.equal(got[ok], want[ok])
 
 
+# the vocab-shard mode (tensor parallelism): each of t shards' partials
+# from one launch beside the plain version's (the max within float32 sum
+# order), merged into the unsharded kernel's tokens on decidable rows;
+# timestamp_begin falls inside a shard at d = 24 (v = 1900: shards of
+# 1024, 512, 256 ids) and on the last shard at the real vocab
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("b", [1, 4, 16, 128])
+@pytest.mark.parametrize("d", [24, 384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["seen_ban", "ts"])
+def test_k2_partials_merge_to_the_unsharded_tokens(cuda, t, b, d, dtype,
+                                                   mode):
+    v = 1900 if d == 24 else 51865
+    hidden, table_t, add, seen, ban = _k2_case(cuda, b, v, d, dtype, 4)
+    kw = _k2_kwargs(cuda, b, v, mode, seen, ban)
+    w = dl.pad_vocab(v) // t
+    stats = _build.STATS["fused_greedy_step_partials"]
+    parts, plain = [], []
+    for r in range(t):
+        cols = slice(r * w, (r + 1) * w)
+        shard = dict(kw)
+        for name in ("seen", "ban"):
+            if name in kw:
+                shard[name] = kw[name][:, cols].contiguous()
+        args = (hidden, table_t[:, cols].contiguous(),
+                add[cols].contiguous())
+        before = stats.launches
+        parts.append(dl.fused_greedy_step(*args, vocab_offset=r * w,
+                                          partials=True, **shard))
+        assert stats.launches == before + 1
+        plain.append(dl.fused_greedy_step_partials_reference(
+            *args, vocab_offset=r * w, **shard))
+    parts, plain = torch.stack(parts), torch.stack(plain)
+    whole = dl.fused_greedy_step(hidden, table_t, add, **kw)
+    ok = _decidable(dl.processed_logits(hidden, table_t, add, **kw),
+                    mode == "ts", v - 300)
+    torch.cuda.synchronize()
+    assert parts.shape == (t, b, 6 if mode == "ts" else 2)
+    assert float((parts[..., 0] - plain[..., 0]).abs().max()) <= 1e-4
+    assert ok.any()
+    assert torch.equal(dl.merge_partials(parts)[ok], whole[ok])
+    assert torch.equal(dl.merge_partials(plain)[ok], whole[ok])
+
+
 def test_k2_merge_counter_resets_itself(cuda):
     # the last block of each row group merges and zeroes its counter: many
     # calls in a row on one stream, and calls on a second stream (its own
@@ -384,7 +428,7 @@ def test_k2_sources_take_one_dtype_each(cuda):
     rc = fn(_build.ptr(x), _build.ptr(table_t), _build.ptr(add), None,
             None, 1.0, None, None, None, 0, 2, 64, 1024,
             dl._DTYPES[torch.bfloat16], _build.ptr(part), _build.ptr(part),
-            _build.ptr(out), _build.stream_ptr(x))
+            _build.ptr(out), 0, None, _build.stream_ptr(x))
     assert rc != 0
 
 

@@ -181,9 +181,9 @@ def test_build_mesh_in_one_process(shape, size):
     assert mesh.all_reduce_sum(t, m) is t and t.tolist() == [0, 1, 2]
 
 
+# a "model" axis builds in gloo processes: tests/test_torch_tensor_parallel.py
 @pytest.mark.parametrize("shape,error,match", [
-    ((("data", -1), ("model", 2)), NotImplementedError,
-     "tensor parallelism"),
+    ((("data", -1), ("model", 2)), ValueError, "not divisible"),
     ((("data", 2),), ValueError, "needs 2 processes, have 1"),
     ((("data", -1), ("model", -1)), ValueError, "at most one"),
     ((("batch", 1),), ValueError, "unknown mesh axes"),

@@ -344,17 +344,27 @@ def test_train_whisper_emotion_matches_jax(jparams, tmp_path):
     assert os.path.exists(os.path.join(out_dir, "metrics.jsonl"))
 
 
-def test_trainer_refuses_what_is_not_ported():
-    # SpecAugment and remat are ported; tensor parallelism is not
+def test_trainer_refuses_what_is_not_ported(tmp_path):
+    # SpecAugment, remat and tensor parallelism are ported: one epoch on a
+    # "model" axis of 2 (two gloo processes) is one process's epoch
+    import torch_tp_worker
+    from audio_transformers_tpu_torch.parallel.launch import launch
+
     tw.make_steps(TINY, MelConfig.whisper(), TrainConfig(spec_augment=True),
                   None, "cpu")
     tw.make_steps(TINY, MelConfig.whisper(), TrainConfig(remat=True), None,
                   "cpu")
-    tcfg = TrainConfig(mesh_shape=(("data", -1), ("model", 2)))
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        tw.train_whisper_emotion(TINY, MelConfig.whisper(), tcfg,
-                                 _seq2seq(8, 1).batcher(8),
-                                 _seq2seq(8, 2).batcher(8), device="cpu")
+    out = str(tmp_path)
+    launch("torch_tp_worker:whisper_trainer", 2, [out, "model2"],
+           timeout=120, env={"PYTHONPATH": os.path.dirname(__file__),
+                             "OMP_NUM_THREADS": "1"})
+    torch_tp_worker.whisper_trainer(out, "one")
+    got, want = (torch.load(os.path.join(out, f"{m}_history.pt"))
+                 for m in ("model2", "one"))
+    assert len(got) == len(want) == 1
+    for k, v in want[0].items():
+        if k not in ("clips_per_sec", "data_wait_s"):
+            np.testing.assert_allclose(got[0][k], v, rtol=1e-3, err_msg=k)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tw.resolve_device("cuda")
