@@ -23,10 +23,16 @@
 //    row start shifts the staging by up to 3 floats.
 //  - The FFT replaces the dense DFT's n_fft multiply-adds per bin. Two
 //    frames form one complex signal (a + ib), split after the transform
-//    by conjugate symmetry. N = R1 * R2 runs as two passes over shared
-//    memory: R2 threads per pair each do an R1-point DFT in registers
-//    (strided input, the Hann window applied on the load) and the
-//    inter-pass twiddle (a float32 table the wrapper makes in float64 and
+//    by conjugate symmetry. A float32 FFT's rounding scales with the norm
+//    of its whole input, so each frame's windowed energy is reduced first
+//    and the quieter frame of a pair is scaled by a power of two, 2^e,
+//    that brings the two energies within a factor of 4 (exact in float32);
+//    its power is scaled back by 2^-2e after the split. Each frame's
+//    rounding then scales with its own energy, not its partner's, and a
+//    frame of zero energy gets power exactly 0. N = R1 * R2 runs as two
+//    passes over shared memory: R2 threads per pair each do an R1-point
+//    DFT in registers (strided input, the Hann window and the balance
+//    applied on the load) and the inter-pass twiddle (a float32 table the wrapper makes in float64 and
 //    uploads once), then R1 threads per pair each do an R2-point DFT in
 //    place along their row. The in-register DFTs are mixed radix (2, 3,
 //    4, 5); their roots ride in the launch's parameters. The pass buffer's
@@ -44,6 +50,7 @@
 
 #define MEL_THREADS 256
 #define MEL_FPT 8        // frames per thread in the filterbank
+#define MEL_MAX_FRAMES 16  // frames per block at most (mel_cuda.MAX_FRAMES)
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
   return make_float2(a.x + b.x, a.y + b.y);
@@ -57,6 +64,25 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 w) {
 // -i * a
 __device__ __forceinline__ float2 mul_mi(float2 a) {
   return make_float2(a.y, -a.x);
+}
+
+// 2^k for -126 <= k <= 127, exactly
+__device__ __forceinline__ float exp2i(int k) {
+  return __int_as_float((127 + k) << 23);
+}
+
+// The balance of a frame pair of windowed energies (ea, eb): the exponents
+// (sa, sb), at most one of them nonzero, by which the quieter frame is
+// scaled up so that the two energies lie within a factor of 4 (2^(2 s)
+// with s = floor(d / 2), d the difference of their binary exponents; at
+// most 2^63, which balances any ratio up to 2^127). No scale when either
+// frame has no energy: its power is set to 0 and the other's FFT has no
+// partner.
+__device__ __forceinline__ int2 balance(float ea, float eb) {
+  if (!(ea > 0.f) || !(eb > 0.f)) return make_int2(0, 0);
+  const int d = ilogbf(ea) - ilogbf(eb);
+  const int s = min(abs(d) >> 1, 63);
+  return d > 0 ? make_int2(0, s) : make_int2(s, 0);
 }
 
 // The in-register split of a DFT of R points: R = A * (R / A). 2, 3, 4 and
@@ -238,19 +264,52 @@ mel_kernel(const float* __restrict__ wav, const float* __restrict__ win,
   cp_async_wait_all();
   __syncthreads();
 
-  // 2. Pass one: for pair p (frames 2p, 2p + 1) and column n2, an R1-point
+  // 2. Each frame's windowed energy, a warp a frame; it only picks the
+  // pair's balance below, so its own rounding does not matter.
+  __shared__ float energy[MEL_MAX_FRAMES];
+  // per pair, what step 5 multiplies each frame's power (or magnitude)
+  // by: the balance's scale taken out, or 0 for a frame of zero energy
+  __shared__ float2 unscale[MEL_MAX_FRAMES / 2];
+  {
+    const int warp = tid >> 5, lane = tid & 31;
+    for (int f = warp; f < nf; f += MEL_THREADS / 32) {
+      const float* xf = xs + mis + f * hop;
+      float acc = 0.f;
+      for (int k = lane; k < N; k += 32) {
+        const float y = xf[k] * __ldg(win + k);
+        acc = fmaf(y, y, acc);
+      }
+#pragma unroll
+      for (int o = 16; o; o >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      if (lane == 0) energy[f] = acc;
+    }
+  }
+  __syncthreads();
+
+  // 3. Pass one: for pair p (frames 2p, 2p + 1) and column n2, an R1-point
   // DFT of z[n2 + R2 n1] = w (x_a + i x_b), times W_N^(n2 k1), stored as
-  // row k1 of the pair's pass buffer.
+  // row k1 of the pair's pass buffer; the quieter frame times 2^s (the
+  // pair's thread of column 0 records what undoes it in step 5).
   for (int it = tid; it < np * R2; it += MEL_THREADS) {
     const int p = it / R2, n2 = it - p * R2;
     const float* xa = xs + mis + 2 * p * hop;
     const bool has_b = 2 * p + 1 < nf;
+    const float ea = energy[2 * p], eb = has_b ? energy[2 * p + 1] : 0.f;
+    const int2 sc = balance(ea, eb);
+    const float sa = exp2i(sc.x), sb = exp2i(sc.y);
+    if (n2 == 0) {
+      const int k = use_sqrt ? 1 : 2;
+      unscale[p] = make_float2(ea > 0.f ? exp2i(-k * sc.x) : 0.f,
+                               eb > 0.f ? exp2i(-k * sc.y) : 0.f);
+    }
     float2 v[R1];
 #pragma unroll
     for (int n1 = 0; n1 < R1; ++n1) {
       const int k = n2 + R2 * n1;
       const float w = __ldg(win + k);
-      v[n1] = make_float2(xa[k] * w, has_b ? xa[hop + k] * w : 0.f);
+      v[n1] = make_float2(xa[k] * w * sa,
+                          has_b ? xa[hop + k] * w * sb : 0.f);
     }
     dft<R1, R1>(v, rt.r1);
     float2* y = ys + p * R1 * YS + n2;
@@ -263,7 +322,7 @@ mel_kernel(const float* __restrict__ wav, const float* __restrict__ win,
   }
   __syncthreads();
 
-  // 3. Pass two: for pair p and row k1, an R2-point DFT along the row, in
+  // 4. Pass two: for pair p and row k1, an R2-point DFT along the row, in
   // place: row k1 then holds Z[k1 + R1 k2] at column k2.
   for (int it = tid; it < np * R1; it += MEL_THREADS) {
     float2* y = ys + it * YS;
@@ -276,9 +335,10 @@ mel_kernel(const float* __restrict__ wav, const float* __restrict__ win,
   }
   __syncthreads();
 
-  // 4. The two frames' spectra from Z[k] and Z[N - k]: A = (Z[k] +
+  // 5. The two frames' spectra from Z[k] and Z[N - k]: A = (Z[k] +
   // conj Z[N-k]) / 2, B = (Z[k] - conj Z[N-k]) / 2i; their power (or
-  // magnitude) overwrites the span.
+  // magnitude), the balance's scale taken out, overwrites the span; a
+  // frame of zero energy gets exactly 0.
   constexpr int NF = N / 2 + 1;
   for (int it = tid; it < np * NF; it += MEL_THREADS) {
     const int p = it / NF, k = it - p * NF;
@@ -293,12 +353,13 @@ mel_kernel(const float* __restrict__ wav, const float* __restrict__ win,
       pa = sqrtf(pa);
       pb = sqrtf(pb);
     }
-    pw[2 * p * PS + k] = pa;
-    if (2 * p + 1 < nf) pw[(2 * p + 1) * PS + k] = pb;
+    const float2 us = unscale[p];
+    pw[2 * p * PS + k] = pa * us.x;
+    if (2 * p + 1 < nf) pw[(2 * p + 1) * PS + k] = pb * us.y;
   }
   __syncthreads();
 
-  // 5. The filterbank: a thread takes one band and MEL_FPT frames, so each
+  // 6. The filterbank: a thread takes one band and MEL_FPT frames, so each
   // weight it reads serves MEL_FPT independent sums; each sum runs over
   // the band's bins in ascending order. Then the log and the store
   // (neighbouring threads, neighbouring bands).
@@ -344,6 +405,7 @@ static int launch(const float* wav, const float* win, const float* roots,
     rt.r1[q] = make_float2(roots[2 * q], roots[2 * q + 1]);
   for (int q = 0; q < R2; ++q)
     rt.r2[q] = make_float2(roots[2 * (R1 + q)], roots[2 * (R1 + q) + 1]);
+  if (fpb < 1 || fpb > MEL_MAX_FRAMES) return (int)cudaErrorInvalidValue;
   auto* kernel = mel_kernel<R1, R2>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(

@@ -36,6 +36,19 @@ the seen mask and the token rows) by the chosen parents in ONE launch of
 the row-gather kernel K5 (`ops.permute.permute_rows`), into a second set
 of buffers allocated once; then the two sets swap. The port's cache is
 written in place, so it cannot be gathered in place.
+
+Under tensor parallelism (a `model_group`; `params` this rank's shards,
+`emotion.param_axes`) each rank keeps the self and cross K/V of its
+heads and runs the decoder step on them (its o and fc2 projections end
+in an all-reduce, so the hidden state is whole on every rank). The step
+gathers the rank's vocab shard of the logits to whole rows
+(`tensor.gather_vocab`, B*N x V floats a step); every rank then runs the
+same log-softmax, processors, top-k and hypothesis bookkeeping on the
+same numbers, keeps the whole-vocab seen mask, and so picks the same
+parents and tokens: K5 reorders each rank's own caches with them, one
+launch a step on every rank. `check_ranks` compares a checksum of them
+over the group every step (a debug check: it costs a collective and a
+host sync a step).
 """
 
 from __future__ import annotations
@@ -54,6 +67,7 @@ from audio_transformers_tpu_torch.models.whisper.decode import (
     _SPACE_TOKEN, _process_logits, build_prompt, suppress_masks)
 from audio_transformers_tpu_torch.ops.decode_logits import pad_vocab
 from audio_transformers_tpu_torch.ops.permute import permute_rows
+from audio_transformers_tpu_torch.parallel import tensor as tp
 
 _SCORE_FLOOR = -1.0e9   # HF's initial score for beams 1..N-1
 _EMPTY = -1.0e30        # empty hypothesis slot (any real score beats it)
@@ -153,13 +167,24 @@ def _length_norm(generated: int, length_penalty: float) -> float:
     return float(np.float32(max(generated, 1)) ** np.float32(length_penalty))
 
 
+def _check_ranks(parent: torch.Tensor, tokens: torch.Tensor, group) -> None:
+    """Raises unless every rank of the model `group` holds these parents
+    and tokens: a checksum of each, compared over the group."""
+    w = torch.arange(1, parent.numel() + 1, device=parent.device)
+    mine = torch.stack([(parent.reshape(-1) * w).sum(),
+                        (tokens.reshape(-1) * w).sum()])
+    if not all(torch.equal(x, mine) for x in tp.all_gather(mine, group)):
+        raise AssertionError("the model ranks chose different beams")
+
+
 @torch.no_grad()
 def generate_beam(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
                   enc: torch.Tensor, *,
                   prompt: Optional[Tuple[int, ...]] = None,
                   suppress_ids: Tuple[int, ...] = (),
                   begin_suppress_ids: Optional[Tuple[int, ...]] = None,
-                  max_len: Optional[int] = None, model_group=None) -> dict:
+                  max_len: Optional[int] = None, model_group=None,
+                  check_ranks: bool = False) -> dict:
     """Beam-search decode from encoder states enc (B, T, D). Returns a dict
     shaped like `decode.generate`'s:
       tokens  (B, L) int32 - the best hypothesis, pad after EOS
@@ -167,12 +192,10 @@ def generate_beam(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
       lengths (B,) int32   - valid token count incl. prompt and EOS
     plus the kept set: beam_tokens (B, N, L) int32, beam_scores (B, N)
     float32 (length-normalized, empty slots at -1e30) and beam_lengths
-    (B, N) int32. Beams under tensor parallelism (a `model_group`) are
-    not ported: they raise NotImplementedError."""
-    if model_group is not None:
-        raise NotImplementedError(
-            "beam search under tensor parallelism is not ported (ROADMAP.md "
-            "§1 item 11); decode beams on a data-parallel mesh")
+    (B, N) int32. With a `model_group`, `params` are this rank's shards
+    and every rank returns the same results (see the module note);
+    `check_ranks` then asserts every step that the ranks chose the same
+    parents and tokens."""
     n_beams = dcfg.num_beams
     if n_beams < 2:
         raise ValueError("generate_beam needs num_beams >= 2; use "
@@ -214,7 +237,8 @@ def generate_beam(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
     if self_quant == "int4":
         self_quant = "int8"      # int4 covers only the cross K/V
     cache = wm.init_cache(cfg, n_rows, max_len=length, dtype=enc.dtype,
-                          device=dev, quant=self_quant)
+                          device=dev, quant=self_quant,
+                          model_size=tp.model_size(model_group))
     cross = wm.beam_cross(wm.precompute_cross_attention(
         params, cfg, enc, quant=dcfg.kv_quant))
     sp = wm.prepare_decode_params(params, cfg, dtype=enc.dtype)
@@ -260,11 +284,13 @@ def generate_beam(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
     while cache["index"] < length - 1 and not bool(done.all()):
         i = cache["index"]
         hidden, cache = wm.apply_decoder_step(sp, cfg, tokens[:, i], cache,
-                                              cross, beams=n_beams)
+                                              cross, beams=n_beams,
+                                              model_group=model_group)
         pos = i + 1
+        logits = tp.gather_vocab(torch.matmul(hidden.float(), table.t()),
+                                 model_group, vocab)
         logp = _process_logits(
-            torch.log_softmax(torch.matmul(hidden.float(), table.t()),
-                              dim=-1),
+            torch.log_softmax(logits, dim=-1),
             tokens, pos, cfg, dcfg, p_len, masks,
             seen=seen[:, :vocab] if track_seen else None,
             finished=done.repeat_interleave(n_beams))
@@ -315,6 +341,8 @@ def generate_beam(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
         parent = torch.where(freeze, beam_iota, parent)
         scores = torch.where(freeze, scores, nxt_scores)
 
+        if check_ranks and model_group is not None:
+            _check_ranks(parent, nxt_tok, model_group)
         # reorder every per-beam buffer by its parent (HF _reorder_cache)
         # into the spare set, swap, then append this step's tokens
         flat_parent = (b_idx[:, None] * n_beams + parent).reshape(-1)
@@ -340,7 +368,8 @@ def generate_beam(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
     out_tokens = hyp_tokens[b_idx, best]
     out_lens = hyp_lens[b_idx, best]
     # hiddens for pooling: one teacher-forced pass over the winners
-    hiddens = wm.apply_decoder(params, cfg, enc, out_tokens, attn_impl="xla")
+    hiddens = wm.apply_decoder(params, cfg, enc, out_tokens, attn_impl="xla",
+                               model_group=model_group)
     return {"tokens": out_tokens.to(torch.int32),
             "hiddens": hiddens.to(enc.dtype),
             "lengths": out_lens.to(torch.int32),

@@ -19,7 +19,6 @@ from audio_transformers_tpu_torch.core.config import \
 from audio_transformers_tpu_torch.core import params as cp
 from audio_transformers_tpu_torch.models.whisper import model as wm
 from audio_transformers_tpu_torch.ops import nn
-from audio_transformers_tpu_torch.parallel import tensor as tp
 from audio_transformers_tpu_torch.ops.segment_pool import (
     masked_sequence_mean, segment_ids_from_tokens, segment_means)
 
@@ -52,17 +51,19 @@ def forward_train(params: dict, cfg: EmotionWhisperConfig, mel: torch.Tensor,
     id is the pad token. attn_impl="flash" trains through the flash
     attention kernels (forward and backward); "auto" is "xla" here, as in
     the reference. With a `model_group`, `params` are this rank's shards
-    (`param_axes`) and the logits are gathered over the vocab shards, so
-    every rank returns the whole outputs."""
+    (`param_axes`) and the token logits are this rank's vocab shard, (B,
+    T, ids [v0, v1) of `parallel.tensor.vocab_shard`), not gathered: the
+    train and eval steps take their cross-entropy over the shards
+    (`train.whisper_emotion.token_cross_entropy`), and `tensor.gather_vocab`
+    joins them where the whole rows are needed; the emotion logits are
+    whole on every rank."""
     w = cfg.whisper
     enc = wm.encode(params["whisper"], w, mel, remat=remat,
                     attn_impl=attn_impl, model_group=model_group)
     hidden = wm.apply_decoder(params["whisper"], w, enc, decoder_ids,
                               remat=remat, attn_impl=attn_impl,
                               model_group=model_group)
-    logits = tp.gather_vocab(
-        wm.logits_from_hidden(params["whisper"], hidden, model_group),
-        model_group, w.vocab_size)
+    logits = wm.logits_from_hidden(params["whisper"], hidden, model_group)
     if pooling == "all":
         pooled = hidden.float().mean(dim=1)
     elif pooling == "masked":

@@ -20,12 +20,15 @@ ridge line.
 
 Both `precision` names of the reference ("highest" and "high") compute
 in full float32 FMA here; the float32 FFT's rounding grows as log N,
-below the dense sum's. Pairing two frames makes a bin's rounding scale
-with the pair's energy: a silent frame beside a loud one (the zero
-padding after a short clip's end) gets an absolute error that `log(mel +
-1e-9)` turns into a relative one. `pair_error_bound` states how far that
-can go. Whisper's cross-frame floor, (x+4)/4 and the frame drop run as
-plain PyTorch after the kernel, as in the TPU version.
+below the dense sum's. A float32 FFT's rounding scales with the norm of
+its whole input, so the kernel scales the quieter frame of each pair by
+a power of two that brings the pair's energies within a factor of 4,
+and gives a frame of zero energy power exactly 0: each frame's rounding
+then scales with its own energy (`frame_error_bound` states how far it
+can go). `golden_error_bound` states how far any float32 front end may
+lie from the float64 golden `reference_log_mel`. Whisper's cross-frame
+floor, (x+4)/4 and the frame drop run as plain PyTorch after the kernel,
+as in the TPU version.
 """
 
 from __future__ import annotations
@@ -37,7 +40,6 @@ from typing import Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from audio_transformers_tpu_torch.core.config import MelConfig
 from audio_transformers_tpu_torch.ops import _build
@@ -56,11 +58,21 @@ MAX_FRAMES = 16           # frames per block at most
 # 48 KB the launcher opts in (cudaFuncSetAttribute)
 _SMEM_LIMIT = 74 * 1024
 _LOG_MODES = {"none": 0, "log_eps": 1, "whisper": 2}
-# a bin's rounding error in the kernel's float32 FFT of a frame pair, in
-# units of u * log2(n_fft) * ||pair||_2 (u = 2^-24): the numpy emulation
-# of the kernel's two passes (tests/test_torch_kernels.py) reaches 0.66;
-# 4 leaves a factor of 6
+# a bin's rounding error in the kernel's float32 FFT of a frame, in units
+# of u * log2(n_fft) * ||frame||_2 (u = 2^-24): the balanced pair's norm
+# is at most sqrt(5) times either frame's; the numpy emulation of the
+# kernel's balanced two passes (tests/test_torch_kernels.py) reaches 0.79
+# of the unit, and 4 leaves a factor of 5
 FFT_ERR = 4.0
+# a bin's rounding error in any float32 DFT of a frame (an FFT, or a
+# dense sum of N products in any order), in units of u * sqrt(n_fft) *
+# ||frame||_2: an N-term float32 inner product errs by about u times the
+# root sum of squares of its partial sums (Higham and Mary, 2019), which
+# is about sqrt(N) ||frame|| / 2 here; the numpy emulation of a plain
+# sequential float32 sum without FMA (tests/test_torch_kernels.py)
+# reaches 2.7 of the unit on noise frames, and 4 leaves a factor of 1.5.
+# It covers FFT_ERR's unit at both presets (log2 N <= sqrt N)
+GOLDEN_ERR = 4.0
 LOG_EPS = 1e-9
 # wav, win, roots (host), ptw, fbw, band, out; batch, n, t_total, n_fft,
 # hop, pad, n_mels, fpb, off2, smem, use_sqrt, log_mode; stream
@@ -183,45 +195,113 @@ def _launch(wav: torch.Tensor, cfg: MelConfig, t_full: int,
     return out
 
 
-def pair_error_bound(waveform: torch.Tensor, cfg: MelConfig,
-                     mel_power: torch.Tensor) -> torch.Tensor:
+def _frames64(waveform: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
+    """(B, T, n_fft) float64: the windowed frames, from the float32
+    samples the kernel reads (their products with the float32 window are
+    exact in float64)."""
+    win = torch.from_numpy(hann_window(cfg.n_fft)).to(waveform.device,
+                                                      torch.float64)
+    return prepare_waveform(waveform, cfg).double().unfold(
+        1, cfg.n_fft, cfg.hop_length) * win
+
+
+def _band_error(e: torch.Tensor, mel: torch.Tensor,
+                cfg: MelConfig) -> torch.Tensor:
+    """How far band m's power moves when every bin of the frame's spectrum
+    errs by at most e (B, T, 1): the power |A_k|^2 by 2 |A_k| e + e^2, so
+    the band (weights 0 <= f <= 1, W_m their sum) by 2 e sqrt(W_m mel_m)
+    + e^2 W_m (Cauchy-Schwarz, f^2 <= f)."""
+    w = torch.from_numpy(mel_filter_bank(cfg)).to(
+        mel.device, torch.float64).sum(0)
+    mel = mel.double().clamp_min(0.0)
+    return 2.0 * e * (w * mel).sqrt() + e * e * w
+
+
+def _log_error(d: torch.Tensor, x: torch.Tensor,
+               floor: float) -> torch.Tensor:
+    """How far log(max(x', floor)) or log(x' + floor) moves for x' within
+    d of x > 0 (x already holds the floor): at most max(log1p(d / x),
+    -log(max(1 - d / x, floor / x)))."""
+    return torch.maximum(torch.log1p(d / x), -torch.log(torch.maximum(
+        1.0 - d / x, floor / x)))
+
+
+def frame_error_bound(waveform: torch.Tensor, cfg: MelConfig,
+                      mel_power: torch.Tensor) -> torch.Tensor:
     """(B, T, n_mels) float64: how far the kernel's log_eps features,
     log(mel + 1e-9), may lie from exact ones on these clips, beyond the
     float32 rounding of the filterbank sum and the log.
 
     `mel_power` is the exact (or plain float32) mel power of the same
     clips (`mel.log_mel_torch` with log_mode "none"). The kernel FFTs
-    frames 2p and 2p + 1 (windowed: a, b) as z = a + ib and takes A_k =
-    (Z_k + conj Z_(N-k)) / 2, so a bin's error is at most e = FFT_ERR * u
-    * log2(N) * ||z||_2 with ||z||^2 = ||a||^2 + ||b||^2: the pair's
-    energy, not the frame's. The power |A_k|^2 then errs by at most
-    2 |A_k| e + e^2, and band m (weights 0 <= f <= 1, W_m their sum) by
-    at most d = 2 e sqrt(W_m mel_m) + e^2 W_m (Cauchy-Schwarz, f^2 <= f).
-    With x = mel_m + 1e-9 and the kernel's mel never below 0, the log
-    moves by at most max(log1p(d / x), -log(max(1 - d / x, 1e-9 / x))).
-    A silent frame whose partner is loud has mel_m = 0 and takes
-    log1p(e^2 W_m / 1e-9), about 0.3 for a partner of unit-variance
-    noise: the loud frame's relative error made absolute."""
-    if cfg.log_mode != "log_eps":
-        raise ValueError("pair_error_bound covers log_mode 'log_eps'")
-    n = cfg.n_fft
-    win = torch.from_numpy(hann_window(n)).to(waveform.device,
-                                              torch.float64)
-    frames = prepare_waveform(waveform, cfg).double().unfold(
-        1, n, cfg.hop_length) * win
-    energy = frames.square().sum(-1)                       # (B, T)
-    t = energy.shape[1]
-    energy = F.pad(energy, (0, t % 2))
-    pair = energy.view(energy.shape[0], -1, 2).sum(-1) \
-        .repeat_interleave(2, dim=1)[:, :t]
-    e = (FFT_ERR * 2.0 ** -24 * math.log2(n) * pair.sqrt())[..., None]
-    w = torch.from_numpy(mel_filter_bank(cfg)).to(
-        waveform.device, torch.float64).sum(0)
+    frames 2p and 2p + 1 (windowed: a, b) as z = a + i 2^s b, the quieter
+    frame scaled so that the two energies lie within a factor of 4, and
+    scales its power back; so a bin's error is at most e = FFT_ERR * u *
+    log2(N) * ||frame||_2, the frame's own energy (FFT_ERR's unit covers
+    the balanced pair's norm, at most sqrt(5) ||frame||). The band then
+    errs by `_band_error` and the log by `_log_error`. A frame of zero
+    energy has power exactly 0 in the kernel and in the plain version:
+    its bound is 0. Never wider than the pair's energy would give."""
+    if cfg.log_mode != "log_eps" or cfg.power != 2.0:
+        raise ValueError("frame_error_bound covers log_mode 'log_eps' "
+                         "with power 2")
+    energy = _frames64(waveform, cfg).square().sum(-1)
+    e = (FFT_ERR * 2.0 ** -24 * math.log2(cfg.n_fft)
+         * energy.sqrt())[..., None]
     mel = mel_power.double().clamp_min(0.0)
-    d = 2.0 * e * (w * mel).sqrt() + e * e * w
-    x = mel + LOG_EPS
-    return torch.maximum(torch.log1p(d / x), -torch.log(torch.maximum(
-        1.0 - d / x, LOG_EPS / x)))
+    return _log_error(_band_error(e, mel, cfg), mel + LOG_EPS, LOG_EPS)
+
+
+def golden_error_bound(waveform: torch.Tensor,
+                       cfg: MelConfig) -> torch.Tensor:
+    """(B, T, n_mels) float64: how far the features of any float32 front
+    end may lie from the float64 golden `mel.reference_log_mel` of the
+    same clips, bin by bin, in log_mode "whisper" or "log_eps" (power 2).
+
+    A float32 DFT of a frame errs by at most e = GOLDEN_ERR * u *
+    sqrt(N) * ||frame||_2 a bin (`GOLDEN_ERR`); the band's power then by
+    `_band_error` plus the float32 rounding of the power and of the
+    filterbank sum in both the front end and the golden, 2 (n_bins + 2)
+    u mel_m; the log by `_log_error`, here with the exact mel (float64).
+    Whisper's max - 8 floor: the clip's maximum M moves by at most the
+    largest error among the bins that could hold it (those within their
+    error of the maximum's lower end), d_M; a bin clamped at the floor on
+    both sides errs by d_M, a bin above it on both sides by its own
+    error, any other by the larger of the two; (x + 4) / 4 divides by 4.
+    Then 8 u (1 + |x|) for the rounding of the log and of that affine
+    step. Chip checks hold a front end to the larger of this and the
+    reference package's 2e-5 + 1e-5 |ref|."""
+    if cfg.log_mode not in ("whisper", "log_eps") or cfg.power != 2.0:
+        raise ValueError("golden_error_bound covers log_mode 'whisper' or "
+                         "'log_eps' with power 2")
+    u = 2.0 ** -24
+    frames = _frames64(waveform, cfg)
+    e = (GOLDEN_ERR * u * math.sqrt(cfg.n_fft)
+         * frames.square().sum(-1).sqrt())[..., None]
+    fb = torch.from_numpy(mel_filter_bank(cfg)).to(waveform.device,
+                                                   torch.float64)
+    mel = torch.fft.rfft(frames, dim=-1).abs().square() @ fb
+    n_bins = int((fb != 0).sum(0).max())
+    d = _band_error(e, mel, cfg) + 2 * (n_bins + 2) * u * mel
+    if cfg.log_mode == "log_eps":
+        x = mel + LOG_EPS
+        return _log_error(d, x, LOG_EPS) + 8 * u * (1 + x.log().abs())
+    if cfg.drop_last_frame:
+        mel, d = mel[:, :-1], d[:, :-1]
+    x = mel.clamp_min(1e-10)
+    err = _log_error(d, x, 1e-10) / math.log(10.0)
+    lg = x.log10()
+    flat_l, flat_e = lg.flatten(1), err.flatten(1)
+    top = flat_l.max(dim=1, keepdim=True)
+    e_top = flat_e.gather(1, top.indices)
+    near = flat_l + flat_e >= top.values - e_top
+    e_max = torch.where(near, flat_e, 0.0).amax(dim=1)[:, None, None]
+    floor = top.values[:, :, None] - 8.0
+    out = torch.maximum(err, e_max)
+    out = torch.where(lg + err <= floor - e_max, e_max, out)
+    out = torch.where(lg - err >= floor + e_max, err, out)
+    feat = (torch.maximum(lg, floor) + 4.0) / 4.0
+    return out / 4.0 + 8 * u * (1 + feat.abs())
 
 
 def log_mel_cuda(waveform: torch.Tensor, cfg: MelConfig) -> torch.Tensor:

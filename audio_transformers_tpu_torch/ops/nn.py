@@ -151,15 +151,26 @@ def draw(fn, generator, *args, shape, device) -> Tensor:
 
 
 def dropout(generator: Optional[torch.Generator], x: Tensor, rate: float,
-            *, training: bool) -> Tensor:
+            *, training: bool, shard=None) -> Tensor:
     """Inverted dropout: each element kept with probability 1 - rate (a
     uniform draw from `generator` below it) and scaled by 1 / (1 - rate).
     The identity when not training, at rate 0 or without a generator. The
-    generator (or `RowShard`) must live on x's device."""
+    generator (or `RowShard`) must live on x's device.
+
+    `shard` = (dim, t, r) says that x is piece r of t equal pieces along
+    `dim` (not 0) of the whole tensor, a model rank's heads or hidden
+    units: the mask is drawn for the whole tensor and piece r kept, so
+    the ranks of a model axis together draw what one process draws."""
     if not training or rate <= 0.0 or generator is None:
         return x
-    keep = draw(torch.rand, generator, shape=tuple(x.shape),
+    shape = list(x.shape)
+    if shard is not None:
+        dim, t, r = shard
+        shape[dim] *= t
+    keep = draw(torch.rand, generator, shape=tuple(shape),
                 device=x.device) < 1.0 - rate
+    if shard is not None:
+        keep = keep.narrow(dim, r * x.shape[dim], x.shape[dim])
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
@@ -224,7 +235,8 @@ def multihead_attention(params: dict, q_in: Tensor, kv_in: Tensor, *,
     formulation), with `mask` (broadcastable to (B, H, Tq, Tk), True =
     keep) or `causal`, and dropout of the attention probabilities at
     `dropout_rate` when a generator is given (torch MultiheadAttention's
-    semantics). impl="flash" projects straight to the head-major
+    semantics; under a model group drawn for every head and cut to this
+    rank's). impl="flash" projects straight to the head-major
     (B, H, T, hd) layout and runs the flash-attention kernels
     (`ops.attention.flash_attention`, forward and backward); it takes no
     mask beyond `causal`.
@@ -268,7 +280,9 @@ def multihead_attention(params: dict, q_in: Tensor, kv_in: Tensor, *,
         logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     if dropout_rate > 0.0 and generator is not None:
-        probs = dropout(generator, probs, dropout_rate, training=True)
+        # under a model group: the mask of every head, this rank's kept
+        probs = dropout(generator, probs, dropout_rate, training=True,
+                        shard=tp.piece(group, 1))
     out = torch.matmul(probs.to(v.dtype), v)              # (B, H, Tq, hd)
     return row_linear(params["o"], out.transpose(1, 2).reshape(b, tq, d),
                       group)

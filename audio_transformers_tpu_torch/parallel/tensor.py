@@ -15,7 +15,14 @@ and calls them itself, Megatron-style:
     follows each row-parallel projection (o, fc2), whose output is a
     partial sum on each rank;
   - `gather_vocab`: the vocab-sharded logits gathered along the last
-    dim; its backward keeps this rank's slice and reduces nothing.
+    dim; its backward keeps this rank's slice and reduces nothing (the
+    decodes' sampling fallback and beams);
+  - `vocab_parallel_cross_entropy`: the cross-entropy of vocab-sharded
+    logits from three all-reduces of one float a row (the max, the sum
+    of exponentials, the target's logit), whose backward makes no
+    collective: the train and eval steps never gather B x T x V logits,
+    as XLA partitions the reference's softmax cross-entropy over the
+    embedding's vocab shards.
 
 `ops.nn.row_linear` and `ops.nn.embedding_lookup` take a model group
 and use them.
@@ -57,6 +64,14 @@ def model_size(group) -> int:
 
 def model_rank(group) -> int:
     return 0 if group is None else dist.get_rank(group)
+
+
+def piece(group, dim: int):
+    """(dim, model size, model rank) of a model `group`, the `shard` of
+    `ops.nn.dropout` for a tensor cut along `dim` over the group; None
+    without a group."""
+    return None if group is None else (dim, model_size(group),
+                                       model_rank(group))
 
 
 def vocab_shard(vocab: int, t: int, r: int) -> Tuple[int, int, int]:
@@ -206,3 +221,52 @@ def gather_vocab(x: torch.Tensor, group, vocab: int) -> torch.Tensor:
     the same on every rank; the backward keeps this rank's slice."""
     return x if group is None else _GatherVocab.apply(x, group, vocab)
 
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, targets, group, v0, vocab):
+        # this rank's real ids are [v0, v0 + n): columns past n (the
+        # padded vocab's tail) enter neither the max nor the sum
+        n = max(min(logits.shape[-1], vocab - v0), 0)
+        x = logits[..., :n].float()
+        m = (x.amax(dim=-1) if n else
+             torch.full(x.shape[:-1], float("-inf"), device=x.device))
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(x - m[..., None])
+        s = e.sum(dim=-1)
+        dist.all_reduce(s, group=group)
+        local = targets.long() - v0
+        hit = (local >= 0) & (local < n)
+        idx = local.clamp(0, max(n - 1, 0))[..., None]
+        t = (torch.where(hit, x.gather(-1, idx)[..., 0], 0.0) if n
+             else torch.zeros_like(m))
+        dist.all_reduce(t, group=group)
+        e /= s[..., None]                        # this rank's softmax
+        ctx.save_for_backward(e, idx, hit)
+        ctx.width = logits.shape[-1]
+        ctx.dtype = logits.dtype
+        return torch.log(s) + m - t
+
+    @staticmethod
+    def backward(ctx, g):
+        p, idx, hit = ctx.saved_tensors
+        if p.shape[-1]:
+            p = p.scatter_add(-1, idx, -hit[..., None].to(p.dtype))
+        grad = p * g[..., None]
+        grad = torch.nn.functional.pad(grad, (0, ctx.width - grad.shape[-1]))
+        return grad.to(ctx.dtype), None, None, None, None
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                                 group, v0: int, vocab: int) -> torch.Tensor:
+    """Per-token cross-entropy (...,) float32 of logits cut over the vocab:
+    `logits` (..., V_local) are this rank's ids [v0, v0 + V_local) of a
+    `vocab`-id vocabulary (ids past `vocab` ignored), `targets` (...,)
+    global ids. The forward all-reduces, over the model `group`, each
+    row's max (MAX), its sum of exp(l - max) and the target's logit
+    (SUM; 0 on every rank but the one that holds the id); the backward,
+    softmax - onehot on this rank's ids times the upstream gradient,
+    makes no collective. The same values as F.cross_entropy of the
+    gathered logits, up to sum order."""
+    return _VocabParallelCE.apply(logits, targets, group, v0, vocab)

@@ -31,7 +31,12 @@ steps, and the eval sums and train metrics are reduced over the ranks,
 so a step equals one process's step on the global batch up to sum
 order; rank 0 alone writes. On a mesh with a "model" axis every model
 rank holds a replica and its data rank's rows, as in the reference
-(whose classifier trainer replicates its parameters).
+(whose classifier trainer replicates its parameters), unless
+`tensor_parallel` is set: each model rank then holds its shards of the
+parameters (`us.param_axes`) and of Adam's moments, the steps run the
+sharded model (K3 on every rank), the gradients are averaged over the
+data axis only, and the checkpoints hold the whole tree (gathered on
+every rank, written by rank 0).
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from audio_transformers_tpu_torch.core.params import resolve_device
 from audio_transformers_tpu_torch.models.urbansound import model as us
 from audio_transformers_tpu_torch.ops import specaugment as sa
 from audio_transformers_tpu_torch.ops.mel import log_mel
+from audio_transformers_tpu_torch.parallel import tensor as tp
 from audio_transformers_tpu_torch.parallel.mesh import (Mesh,
                                                         all_reduce_sum,
                                                         average_gradients,
@@ -71,7 +77,8 @@ from audio_transformers_tpu_torch.train.optim import (PlateauScheduler,
 
 
 def make_steps(model_cfg: UrbanSoundConfig, mel_cfg: MelConfig,
-               train_cfg: TrainConfig, opt, mesh: Mesh = Mesh(1, 0)):
+               train_cfg: TrainConfig, opt, mesh: Mesh = Mesh(1, 0), *,
+               tensor_parallel: bool = False):
     """(train_step, eval_step).
 
     train_step(params, state, batch, generator) updates `params` in place
@@ -81,15 +88,20 @@ def make_steps(model_cfg: UrbanSoundConfig, mel_cfg: MelConfig,
     returns the sums `loss_sum`, `correct` and `count`. On a `mesh` of
     several ranks train_step takes this rank's rows and a `nn.RowShard`
     generator, normalises BatchNorm over the global batch and averages
-    the gradients before Adam steps."""
+    the gradients before Adam steps. With `tensor_parallel` on a mesh
+    with a model axis the parameters are this rank's shards
+    (`us.param_axes`) and `opt` is built over them with the model group
+    and the axes (the clip's norm over the whole tree)."""
     compute_dtype = DTYPES[train_cfg.compute_dtype]
+    model_group = mesh.model_group if tensor_parallel else None
 
     def forward(params, state, waveform, *, training, generator=None):
         mel = log_mel(waveform, mel_cfg).to(compute_dtype)
         if train_cfg.spec_augment and training and generator is not None:
             mel = sa.spec_augment(generator, mel)
         return us.apply(params, state, model_cfg, mel, training=training,
-                        generator=generator, group=mesh.group)
+                        generator=generator, group=mesh.group,
+                        model_group=model_group)
 
     def train_step(params, state, batch, generator=None):
         logits, new_state = forward(params, state, batch["waveform"],
@@ -136,7 +148,8 @@ def train_classifier(model_cfg: UrbanSoundConfig, mel_cfg: MelConfig,
                      device="cuda", init_params=None,
                      log_dir: Optional[str] = None,
                      wandb_project: Optional[str] = None,
-                     logger: Optional[MetricLogger] = None) -> dict:
+                     logger: Optional[MetricLogger] = None,
+                     tensor_parallel: bool = False) -> dict:
     """Trains for train_cfg.num_epochs epochs on `device` ("cuda" raises
     when no CUDA device is present), evaluating after each one.
 
@@ -149,23 +162,36 @@ def train_classifier(model_cfg: UrbanSoundConfig, mel_cfg: MelConfig,
 
     In a process group (`parallel.distributed`) this runs on every rank,
     each with its own device and batchers
-    (`build_mesh(train_cfg.mesh_shape)` must cover the group)."""
+    (`build_mesh(train_cfg.mesh_shape)` must cover the group). With
+    `tensor_parallel` the model axis cuts the parameters (see the module
+    note); the returned params and snapshots are the whole tree."""
     device = resolve_device(device)
     mesh = build_mesh(train_cfg.mesh_shape)
     writer = mesh.writer
     if init_params is None:
         init_params = us.init(model_cfg, torch.Generator().manual_seed(
             train_cfg.seed))
-    params = cp.set_trainable(replicated(cp.map_tensors(
-        init_params[0], lambda t: t.detach().to(device, torch.float32)
-        .clone()), mesh), frozen=())
+    params = cp.map_tensors(init_params[0], lambda t: t.detach().to(
+        device, torch.float32).clone())
+    axes = (us.param_axes(params, model_cfg, mesh.model_size)
+            if tensor_parallel and mesh.model_group is not None else None)
+    if axes is not None:
+        params = tp.shard_params(params, mesh.model_size, mesh.model_rank,
+                                 axes)
+    params = cp.set_trainable(replicated(params, mesh), frozen=())
     state = replicated(cp.map_tensors(
         init_params[1], lambda t: t.detach().to(device).clone()), mesh)
     opt = build_optimizer(train_cfg.optimizer, params,
                           total_steps=train_batcher.steps_per_epoch
-                          * train_cfg.num_epochs)
+                          * train_cfg.num_epochs,
+                          model_group=None if axes is None
+                          else mesh.model_group, axes=axes)
+
+    def whole(tree):   # the whole parameter tree, on every model rank
+        return (tp.gather_params(tree, mesh.model_group, axes)
+                if axes is not None else tree)
     train_step, eval_step = make_steps(model_cfg, mel_cfg, train_cfg, opt,
-                                       mesh)
+                                       mesh, tensor_parallel=axes is not None)
     plateau = (PlateauScheduler(train_cfg.optimizer)
                if train_cfg.optimizer.schedule == "reduce_on_plateau"
                else None)
@@ -183,7 +209,10 @@ def train_classifier(model_cfg: UrbanSoundConfig, mel_cfg: MelConfig,
     best_val_acc, history, best_tree = -1.0, [], None
     step = start_epoch = 0
     if resume_ckpt is not None and resume_ckpt.latest_step() is not None:
-        tree, meta, step = restore_into(params, opt, resume_ckpt)
+        tree, meta, step = restore_into(
+            params, opt, resume_ckpt,
+            shard=None if axes is None else lambda t: tp.shard_params(
+                t, mesh.model_size, mesh.model_rank, axes))
         check_structure(tree["state"], state,
                         f"{resume_ckpt.directory} step {step}")
         state = cp.to_device(tree["state"], device)
@@ -246,7 +275,7 @@ def train_classifier(model_cfg: UrbanSoundConfig, mel_cfg: MelConfig,
         if val["accuracy"] > best_val_acc:
             best_val_acc = val["accuracy"]
             # one host copy, shared with the checkpoint write below
-            best_tree = {"params": host_copy(params),
+            best_tree = {"params": host_copy(whole(params)),
                          "state": host_copy(state)}
             if ckpt is not None and writer:
                 ckpt.save(step, best_tree,
@@ -255,10 +284,12 @@ def train_classifier(model_cfg: UrbanSoundConfig, mel_cfg: MelConfig,
                                     "epoch": epoch + 1,
                                     "val_accuracy": val["accuracy"]},
                           best_metric=val["accuracy"])
+        if resume_ckpt is not None:
+            resume = {"params": whole(params), "state": state,
+                      "opt_state": opt.full_state_dict()}
         if resume_ckpt is not None and writer:
             resume_ckpt.save(
-                step, {"params": params, "state": state,
-                       "opt_state": opt.state_dict()},
+                step, resume,
                 metadata={"epoch": epoch + 1, "best_val_acc": best_val_acc,
                           **({"plateau_best": plateau.best,
                               "plateau_lr": plateau.lr,
@@ -267,8 +298,9 @@ def train_classifier(model_cfg: UrbanSoundConfig, mel_cfg: MelConfig,
 
     log.finish()
     if best_tree is None:   # no epoch improved (e.g. none ran)
-        best_tree = {"params": host_copy(params), "state": host_copy(state)}
-    return {"params": params, "state": state, "optimizer": opt,
+        best_tree = {"params": host_copy(whole(params)),
+                     "state": host_copy(state)}
+    return {"params": whole(params), "state": state, "optimizer": opt,
             "best_params": best_tree["params"],
             "best_state": best_tree["state"],
             "history": history, "best_val_accuracy": best_val_acc}

@@ -39,9 +39,12 @@ reduced over the ranks; rank 0 alone writes.
 Tensor parallelism: with a "model" axis over 1 in `mesh_shape`, each
 model rank holds its shards of the parameters (`emotion.param_axes`,
 `parallel/tensor.py`) and the optimizer moments of its shards; the step
-runs the sharded forward (the logits gathered over the vocab shards, so
-`dual_loss` runs as it is), the gradients are averaged over the data
-axis only, and the clip's norm is the whole tree's. The checkpoints hold
+runs the sharded forward, which leaves each rank its vocab shard of the
+logits, and the cross-entropies of the train and eval steps run over the
+shards (`parallel.tensor.vocab_parallel_cross_entropy`: three
+all-reduces of one float a token, no gathered B x T x V logits); the
+gradients are averaged over the data axis only, and the clip's norm is
+the whole tree's. The checkpoints hold
 the whole tree (gathered on every rank, written by rank 0), so their
 format and a resume do not depend on the mesh.
 """
@@ -83,13 +86,32 @@ from audio_transformers_tpu_torch.train.common import (DTYPES,
 from audio_transformers_tpu_torch.train.optim import (build_optimizer,
                                                       frozen_leaf_decay_mask)
 
+def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                        model_group=None,
+                        vocab_size: Optional[int] = None) -> torch.Tensor:
+    """(B, T) float32 cross-entropy of each target id under logits
+    (B, T, V); under a model group the logits are this rank's vocab shard
+    of a `vocab_size`-id vocabulary (`parallel.tensor.vocab_shard`) and
+    the cross-entropy runs over the shards."""
+    if model_group is None:
+        return F.cross_entropy(logits.float().transpose(1, 2), targets,
+                               reduction="none")
+    v0, _, _ = tp.vocab_shard(vocab_size, tp.model_size(model_group),
+                              tp.model_rank(model_group))
+    return tp.vocab_parallel_cross_entropy(logits, targets, model_group, v0,
+                                           vocab_size)
+
+
 def dual_loss(logits: torch.Tensor, emotion_logits: torch.Tensor,
               labels: torch.Tensor, emotion_labels: torch.Tensor, *,
               pad_token_id: int, emotion_weight: float,
-              mask_mode: str = "pad", group=None) -> Dict[str, torch.Tensor]:
+              mask_mode: str = "pad", group=None, model_group=None,
+              vocab_size: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """labels (B, T+1) are full sequences: teacher forcing feeds
     labels[:, :-1] and targets labels[:, 1:]; `logits` (B, T, V) belong to
-    the shifted inputs. Cross-entropies run on float32 logits.
+    the shifted inputs. Cross-entropies run on float32 logits; with a
+    `model_group` the logits are this rank's vocab shard of a
+    `vocab_size`-id vocabulary (`token_cross_entropy`).
 
     With a process `group` of R ranks, each holding its rows of the
     global batch, the transcription loss is the reference's token mean
@@ -106,8 +128,7 @@ def dual_loss(logits: torch.Tensor, emotion_logits: torch.Tensor,
         mask = mask | (prev_real & ~mask)
     elif mask_mode != "pad":
         raise ValueError(f"unknown mask_mode {mask_mode!r}")
-    per_tok = F.cross_entropy(logits.float().transpose(1, 2), targets,
-                              reduction="none")
+    per_tok = token_cross_entropy(logits, targets, model_group, vocab_size)
     m = mask.float()
     if group is None:
         count = m.sum().clamp_min(1.0)
@@ -170,7 +191,8 @@ def make_steps(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
         out = dual_loss(logits, emotion_logits, batch["labels"],
                         batch["emotion_labels"], pad_token_id=pad,
                         emotion_weight=train_cfg.emotion_weight,
-                        group=mesh.group)
+                        group=mesh.group, model_group=mesh.model_group,
+                        vocab_size=cfg.whisper.vocab_size)
         opt.zero_grad()
         out["loss"].backward()
         average_gradients(opt.params, mesh)
@@ -183,8 +205,8 @@ def make_steps(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
         targets = batch["labels"][:, 1:]
         valid = batch["valid"].float()
         tok_mask = (targets != pad).float() * valid[:, None]
-        per_tok = F.cross_entropy(logits.float().transpose(1, 2), targets,
-                                  reduction="none")
+        per_tok = token_cross_entropy(logits, targets, mesh.model_group,
+                                      cfg.whisper.vocab_size)
         per_emo = F.cross_entropy(emotion_logits.float(),
                                   batch["emotion_labels"], reduction="none")
         correct = (emotion_logits.argmax(dim=-1)

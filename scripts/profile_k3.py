@@ -28,6 +28,17 @@ centre-padded waveform. It is built with the same nvcc flags, its
 features are held to this checkout's within chip_smoke's K3 tolerance,
 and the two are timed in turns: other, this, this, other.
 
+`--parent DIR` names a checkout whose K3 has this checkout's C
+interface (the two-pass FFT kernel, e.g. the parent commit
+unpacked with `git archive`): both are built with the same flags and
+timed in turns (parent, this, this, parent) by device time, back to back
+and after the 256 MB read, at whisper's B = 1, 4, 16 and at UrbanSound's
+preset on 64 clips of 4 s of noise and on 64 clips of 3 s zero-padded to
+4 s (the classifier's batch); each pair's features are held to each
+other within chip_smoke's K3 tolerance plus `mel_cuda.frame_error_bound`
+on the padded clips (where the parent's pairing errs), and their largest
+difference is printed.
+
 `--sweep` also times this kernel after the 256 MB read at every even
 number of frames per block up to `mel_cuda.MAX_FRAMES` that fits the
 plan's shared memory, in place of `mel_cuda.mel_plan`'s choice. The last
@@ -66,6 +77,7 @@ def main() -> int:
         return 1
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", default=None)
+    ap.add_argument("--parent", default=None)
     ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
 
@@ -91,6 +103,13 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.zeros(FLUSH_BYTES // 4, device="cuda")
+    if args.parent:
+        result = {"card": card,
+                  "parent": against_parent(torch, build_other(
+                      _build, args.parent, "mel"), cs, mel, mc, _build, gen,
+                      flush)}
+        print(json.dumps(result))
+        return 0
     t_full = SAMPLES // cfg.hop_length + 1
     result = {"card": card, "samples": SAMPLES, "reps": 50, "batches": {}}
     for b in BATCHES:
@@ -150,6 +169,64 @@ def main() -> int:
         result["sweep"] = sweep(torch, mc, cfg, gen, flush, t_full)
     print(json.dumps(result))
     return 0
+
+
+def against_parent(torch, parent_lib, cs, mel, mc, _build, gen, flush):
+    """{case: {"parent"/"this": {warm, cold ms lists and medians},
+    "max_diff"}}: the parent checkout's K3 (same C interface, swapped in
+    as `_build`'s entry point) against this one, in turns."""
+    from audio_transformers_tpu_torch.core import MelConfig
+    key = ("mel", "log_mel_f32")
+    this_fn = _build.function("mel", "log_mel_f32", mc._ARGTYPES)
+    parent_fn = parent_lib.log_mel_f32
+    parent_fn.argtypes = list(mc._ARGTYPES)
+    parent_fn.restype = ctypes.c_int
+    us = MelConfig.urbansound()
+    cases = [(f"whisper_b{b}", MelConfig.whisper(), b, SAMPLES, SAMPLES)
+             for b in BATCHES]
+    cases += [("urbansound_b64", us, 64, 88200, 88200),
+              ("urbansound_b64_padded_3s", us, 64, 88200, 66150)]
+    out = {}
+    for name, cfg, b, n, length in cases:
+        wav = torch.zeros((b, n), device="cuda")
+        wav[:, :length] = 0.3 * torch.randn((b, length), generator=gen,
+                                            device="cuda")
+
+        def run(fn):
+            def call():
+                _build._fns[key] = fn
+                try:
+                    return mc.log_mel_cuda(wav, cfg)
+                finally:
+                    _build._fns[key] = this_fn
+            return call
+        runs = {"parent": run(parent_fn), "this": run(this_fn)}
+        got_p, got = runs["parent"](), runs["this"]()
+        torch.cuda.synchronize()
+        diff = (got_p - got).abs()
+        limit = cs.K3_TOL
+        if cfg.log_mode == "log_eps":
+            power = mel.log_mel_torch(wav, cfg.replace(log_mode="none"))
+            limit = limit + mc.frame_error_bound(wav, cfg, power).float()
+        if not bool((diff <= limit).all()):
+            raise RuntimeError(f"{name}: the parent's K3 and this one "
+                               f"differ by {diff.max().item()}")
+        rec = {k: {"warm_ms": [], "cold_ms": []} for k in runs}
+        for k in ("parent", "this", "this", "parent"):
+            rec[k]["warm_ms"].append(kernel_ms(torch, runs[k],
+                                               "mel_kernel")[0])
+            rec[k]["cold_ms"].append(kernel_ms(torch, runs[k], "mel_kernel",
+                                               flush=flush)[0])
+        for k, r in rec.items():
+            r["warm_median_ms"] = statistics.median(r["warm_ms"])
+            r["cold_median_ms"] = statistics.median(r["cold_ms"])
+        out[name] = {**rec, "max_diff": diff.max().item(),
+                     "bound_ms": cs.k3_bound(cfg, mel, b, n)[0]}
+        print(f"{name}: parent warm {rec['parent']['warm_ms']} cold "
+              f"{rec['parent']['cold_ms']}; this warm {rec['this']['warm_ms']}"
+              f" cold {rec['this']['cold_ms']} ms; max |diff| "
+              f"{diff.max().item():.3e}", flush=True)
+    return out
 
 
 def sweep(torch, mc, cfg, gen, flush, t_full):

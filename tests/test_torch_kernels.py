@@ -30,6 +30,8 @@ from audio_transformers_tpu_torch.ops.mel_cuda import log_mel_cuda
 
 K1_TOL = 1e-5
 K3_TOL = 1e-4
+# chip_smoke's K3_TOL, the kernel against its plain version on the card
+K3_TOL_CUDA = 2e-4
 
 
 def _t(a):
@@ -470,22 +472,48 @@ def test_k3_fft_plan_matches_rfft(n_fft):
                                atol=1e-5 * np.abs(want).max())
 
 
-def _pair_spectra(frames, n_fft):
+def _balance(energy):
+    """The kernel's balance of each pair's energies (float32, (2P,)): the
+    exponents (s_a, s_b) by which the quieter frame is scaled, 2^s with s
+    = floor(d / 2), d the difference of their binary exponents, at most
+    63; none where either frame has no energy (`balance` in
+    csrc/mel.cu)."""
+    ea, eb = energy[0::2], energy[1::2]
+    d = np.frexp(ea)[1] - np.frexp(eb)[1]
+    s = np.minimum(np.abs(d) >> 1, 63)
+    s = np.where((ea > 0) & (eb > 0), s, 0)
+    return np.where(d < 0, s, 0), np.where(d > 0, s, 0)
+
+
+def _pair_spectra(frames, n_fft, balance=True):
     """The kernel's spectra of frames (n_fft, 2P) float32, paired (2p,
-    2p + 1) into one complex signal and split by conjugate symmetry."""
-    z = (frames[:, 0::2] + 1j * frames[:, 1::2]).astype(np.complex64)
+    2p + 1) into one complex signal and split by conjugate symmetry; with
+    `balance` as the kernel pairs them: the quieter frame of a
+    pair scaled by 2^s (float32 energies), its spectrum scaled back, a
+    frame of zero energy given exactly 0. Without it, the frames paired
+    as they are (the fault the balance repairs)."""
+    sa = sb = np.zeros(frames.shape[1] // 2, np.int64)
+    energy = (frames * frames).sum(0, dtype=np.float32)
+    if balance:
+        sa, sb = _balance(energy)
+    a = frames[:, 0::2] * np.ldexp(np.float32(1), sa).astype(np.float32)
+    b = frames[:, 1::2] * np.ldexp(np.float32(1), sb).astype(np.float32)
+    z = (a + 1j * b).astype(np.complex64)
     zz = _fft_emulated(z, n_fft)
     k = np.arange(n_fft // 2 + 1)
     zk, zm = zz[k], zz[(-k) % n_fft]
     out = np.empty((len(k), frames.shape[1]), np.complex64)
-    out[:, 0::2] = 0.5 * (zk + np.conj(zm))
-    out[:, 1::2] = (zk - np.conj(zm)) / 2j
+    out[:, 0::2] = 0.5 * (zk + np.conj(zm)) * np.ldexp(1.0, -sa)
+    out[:, 1::2] = (zk - np.conj(zm)) / 2j * np.ldexp(1.0, -sb)
+    if balance:
+        out[:, energy == 0] = 0
     return out
 
 
-def _k3_emulated(wav, cfg):
+def _k3_emulated(wav, cfg, balance=True):
     """K3's log_eps features of wav (B, n) as the kernel computes them:
-    frames in float32, the pair FFT, the power, the filterbank, the log."""
+    frames in float32, the pair FFT (`_pair_spectra`), the power, the
+    filterbank, the log."""
     padded = mel.prepare_waveform(torch.from_numpy(wav), cfg).numpy()
     t = (padded.shape[1] - cfg.n_fft) // cfg.hop_length + 1
     win = mel.hann_window(cfg.n_fft).astype(np.float32)
@@ -495,27 +523,56 @@ def _k3_emulated(wav, cfg):
         frames = np.stack([row[i * cfg.hop_length:][:cfg.n_fft] * win
                            for i in range(t)]
                           + [np.zeros(cfg.n_fft, np.float32)] * (t % 2), 1)
-        spec = _pair_spectra(frames, cfg.n_fft)[:, :t]
+        spec = _pair_spectra(frames, cfg.n_fft, balance)[:, :t]
         power = (spec.real ** 2 + spec.imag ** 2).astype(np.float32)
         out.append(np.log(power.T @ fb + np.float32(mc.LOG_EPS)))
     return np.stack(out)
 
 
 def test_k3_fft_error_unit_covers_the_emulated_kernel():
-    """Each bin of the pair FFT errs by well under FFT_ERR * u * log2(N) *
-    ||pair||_2, loud and quiet frames side by side included."""
+    """Each bin of the balanced pair FFT errs by well under FFT_ERR * u *
+    log2(N) * ||frame||_2, the frame's own energy, loud, quiet and silent
+    frames side by side included; a silent frame's spectrum is 0."""
     rng = np.random.default_rng(7)
     n = 1024
-    frames = (0.3 * rng.standard_normal((n, 32))).astype(np.float32)
+    frames = (0.3 * rng.standard_normal((n, 48))).astype(np.float32)
     frames *= mel.hann_window(n)[:, None].astype(np.float32)
     frames[:, 1::4] *= 1e-4
     frames[:, 2::4] = 0.0
+    frames[:, 3::8] *= 1e-18          # a ratio of energies near 2^121
     got = _pair_spectra(frames, n)
     want = np.fft.rfft(frames.astype(np.float64), axis=0)
     energy = (frames.astype(np.float64) ** 2).sum(0)
-    pair = np.repeat(energy[0::2] + energy[1::2], 2)
-    ratio = np.abs(got - want) / (2.0 ** -24 * np.log2(n) * np.sqrt(pair))
-    assert ratio.max() <= mc.FFT_ERR / 4, ratio.max()
+    unit = 2.0 ** -24 * np.log2(n) * np.sqrt(energy)
+    assert (got[:, energy == 0] == 0).all()
+    live = energy > 0
+    ratio = np.abs(got - want)[:, live] / unit[live]
+    assert ratio.max() <= mc.FFT_ERR / 2, ratio.max()
+
+
+def test_k3_silent_frame_after_a_loud_one_takes_its_own_rounding():
+    """The fault the balance repairs: a quiet frame (a clip's last frame,
+    its few samples under the window's tail) sharing its FFT with a loud
+    one errs past K3_TOL in log(mel + 1e-9) when paired as it is (the
+    loud frame's rounding made absolute by the 1e-9 floor); with the
+    power-of-two balance it stays within frame_error_bound, as every
+    other frame does."""
+    cfg = MelConfig.urbansound()
+    rng = np.random.default_rng(15)
+    length = 512 * 128 + 3            # frame 129, odd: the quiet one
+    wav = np.zeros((4, 88200), np.float32)
+    wav[:, :length] = 0.3 * rng.standard_normal((4, length))
+    plain = mel.log_mel_torch(torch.from_numpy(wav), cfg).numpy()
+    power = mel.log_mel_torch(torch.from_numpy(wav),
+                              cfg.replace(log_mode="none"))
+    bound = mc.frame_error_bound(torch.from_numpy(wav), cfg, power).numpy()
+    before = np.abs(_k3_emulated(wav, cfg, balance=False) - plain)
+    after = np.abs(_k3_emulated(wav, cfg) - plain)
+    assert before[:, 129].max() > K3_TOL_CUDA
+    assert (after <= K3_TOL_CUDA + bound).all()
+    assert after[:, 129].max() <= K3_TOL_CUDA
+    # silent frames: exactly the plain version's log(1e-9)
+    assert (after[:, 131:] == 0).all()
 
 
 @pytest.mark.parametrize("signal", ["noise", "sine"])
@@ -523,9 +580,9 @@ def test_k3_fft_error_unit_covers_the_emulated_kernel():
                                     66150, 512 * 129 + 3])
 def test_k3_padded_clips_stay_within_the_pair_bound(signal, length):
     """UrbanSound's preset on clips zero-padded to 4 s: the emulated
-    kernel against the plain version within K3_TOL + pair_error_bound.
-    The lengths put the last frame with signal, or the first silent one,
-    at either place of its pair."""
+    kernel against the plain version within K3_TOL + frame_error_bound,
+    each frame's own energy. The lengths put the last frame with signal,
+    or the first silent one, at either place of its pair."""
     cfg = MelConfig.urbansound()
     rng = np.random.default_rng(length)
     wav = np.zeros((3, 88200), np.float32)
@@ -538,18 +595,120 @@ def test_k3_padded_clips_stay_within_the_pair_bound(signal, length):
     plain = mel.log_mel_torch(torch.from_numpy(wav), cfg).numpy()
     power = mel.log_mel_torch(torch.from_numpy(wav),
                               cfg.replace(log_mode="none"))
-    bound = mc.pair_error_bound(torch.from_numpy(wav), cfg, power).numpy()
+    bound = mc.frame_error_bound(torch.from_numpy(wav), cfg, power).numpy()
     assert (np.abs(got - plain) <= K3_TOL + bound).all()
     # away from the padding the bound stays near float32's own rounding
     inside = bound[:, :length // cfg.hop_length - 2]
     assert np.median(inside) < 1e-4 and inside.max() < 1e-3
+    # the frame's own energy: never wider than the pair's would give
+    energy = mc._frames64(torch.from_numpy(wav), cfg).square().sum(-1)
+    t_pad = energy.shape[1] + energy.shape[1] % 2
+    pair = torch.nn.functional.pad(energy, (0, t_pad - energy.shape[1]))
+    pair = pair.view(3, -1, 2).sum(-1).repeat_interleave(2, 1)
+    pair = pair[:, :energy.shape[1]]
+    e = (mc.FFT_ERR * 2.0 ** -24 * np.log2(cfg.n_fft) * pair.sqrt())
+    wider = mc._log_error(mc._band_error(e[..., None], power.double(), cfg),
+                          power.double() + mc.LOG_EPS, mc.LOG_EPS)
+    assert (bound <= wider.numpy()).all()
 
 
 def test_k3_pair_bound_takes_log_eps_only():
     cfg = MelConfig.whisper()
     wav = torch.zeros((1, 4000))
     with pytest.raises(ValueError):
-        mc.pair_error_bound(wav, cfg, torch.zeros((1, 26, 80)))
+        mc.frame_error_bound(wav, cfg, torch.zeros((1, 26, 80)))
+    with pytest.raises(ValueError):
+        mc.golden_error_bound(wav, cfg.replace(log_mode="none"))
+
+
+# --------------------------------------------------------------------------
+# the float64 golden's bound (`mel_cuda.golden_error_bound`)
+# --------------------------------------------------------------------------
+
+
+def _golden_limit(wav, cfg):
+    """(golden features, the check's limit per bin: the larger of 2e-5 +
+    1e-5 |ref| and golden_error_bound)."""
+    ref = np.stack([mel.reference_log_mel(c, cfg) for c in wav])
+    bound = mc.golden_error_bound(torch.from_numpy(wav), cfg).numpy()
+    return ref, np.maximum(2e-5 + 1e-5 * np.abs(ref), bound)
+
+
+@pytest.mark.parametrize("cfg_name", ["whisper", "urbansound"])
+def test_dense_float32_dft_stays_within_the_golden_unit(cfg_name):
+    """A plain sequential float32 sum of the N products of each bin (no
+    FMA: the least exact order a float32 front end would use) errs by
+    under GOLDEN_ERR * u * sqrt(N) * ||frame||_2; so does the FFT's unit
+    (FFT_ERR * log2 N)."""
+    cfg = getattr(MelConfig, cfg_name)()
+    n = cfg.n_fft
+    rng = np.random.default_rng(n)
+    x = (0.3 * rng.standard_normal((256, n))).astype(np.float32) \
+        * mel.hann_window(n)
+    cos_b, sin_b = mel.dft_bases(n)
+    re = np.zeros((x.shape[0], cos_b.shape[1]), np.float32)
+    im = np.zeros_like(re)
+    for j in range(n):
+        re = re + x[:, j:j + 1] * cos_b[j]
+        im = im + x[:, j:j + 1] * sin_b[j]
+    want = np.fft.rfft(x.astype(np.float64), axis=1)
+    unit = 2.0 ** -24 * np.sqrt(n) * np.sqrt(
+        (x.astype(np.float64) ** 2).sum(1))[:, None]
+    err = np.maximum(np.abs(re - want.real), np.abs(im + want.imag))
+    assert (err / unit).max() <= mc.GOLDEN_ERR / 1.4, (err / unit).max()
+    assert mc.FFT_ERR * np.log2(n) <= mc.GOLDEN_ERR * np.sqrt(n)
+
+
+@pytest.mark.parametrize("cfg_name,n,seed", [
+    ("whisper", 480000, 0), ("whisper", 480000, 1), ("whisper", 160000, 2),
+    ("urbansound", 88200, 0), ("urbansound", 88200, 1)])
+def test_plain_front_end_meets_the_golden_bound(cfg_name, n, seed):
+    """The plain float32 version against the float64 golden within the
+    larger of 2e-5 + 1e-5 |ref| and golden_error_bound, bin by bin, on
+    seeded draws of 0.3 * randn (chip_smoke phase 3's clips; the card
+    holds K3 and the plain version to it over 32 draws,
+    scripts/probe_k3_golden.py)."""
+    cfg = getattr(MelConfig, cfg_name)()
+    g = torch.Generator().manual_seed(seed)
+    wav = (0.3 * torch.randn((4, n), generator=g)).numpy()
+    ref, limit = _golden_limit(wav, cfg)
+    got = mel.log_mel_torch(torch.from_numpy(wav), cfg).numpy()
+    assert (np.abs(got - ref) <= limit).all()
+    # the emulated kernel (log_eps) too
+    if cfg_name == "urbansound":
+        assert (np.abs(_k3_emulated(wav, cfg) - ref) <= limit).all()
+
+
+@pytest.mark.parametrize("fault", ["band", "window", "filterbank"])
+@pytest.mark.parametrize("cfg_name", ["whisper", "urbansound"])
+def test_golden_bound_rejects_a_real_fault(cfg_name, fault):
+    """The plain version with a real fault fails the golden check: one
+    band's features off by 1e-4 relative, the Hann window shifted by one
+    sample, or the filterbank read transposed ((n_mels, n_freqs) memory
+    taken as (n_freqs, n_mels))."""
+    cfg = getattr(MelConfig, cfg_name)()
+    g = torch.Generator().manual_seed(5)
+    wav = 0.3 * torch.randn((2, 480000 if cfg_name == "whisper" else 88200),
+                            generator=g)
+    ref, limit = _golden_limit(wav.numpy(), cfg)
+    if fault == "band":
+        got = mel.log_mel_torch(wav, cfg).numpy()
+        got[..., 17] *= 1 + 1e-4
+    else:
+        wcos, wsin, fb = (t.clone() for t in mel.device_bases(cfg, "cpu"))
+        if fault == "window":
+            win = torch.from_numpy(mel.hann_window(cfg.n_fft))
+            shifted = torch.roll(win, 1)
+            cos_b, sin_b = (torch.from_numpy(b) for b in
+                            mel.dft_bases(cfg.n_fft))
+            wcos, wsin = shifted[:, None] * cos_b, shifted[:, None] * sin_b
+        else:
+            fb = fb.t().contiguous().reshape(fb.shape)
+        frames = mel.prepare_waveform(wav, cfg).unfold(1, cfg.n_fft,
+                                                       cfg.hop_length)
+        power = (frames @ wcos) ** 2 + (frames @ wsin) ** 2
+        got = mel.log_epilogue(power @ fb, cfg).numpy()
+    assert (np.abs(got - ref) > limit).any()
 
 
 @pytest.mark.parametrize("n_fft", [401, 2048, 512, 300])
@@ -571,6 +730,8 @@ def test_k3_plan_constants_match_the_kernel_source():
     # the row strides of the shared-memory layout that mel_layout makes
     assert "constexpr int YS = R2 | 1;" in src
     assert "constexpr int PS = N / 2 + 1;" in src
+    # the per-frame energies of the balance: one float a frame of a block
+    assert f"#define MEL_MAX_FRAMES {mc.MAX_FRAMES} " in src
     # Split<R>: direct for 2-5, else the first of 4, 5, 3, 2 dividing R
     assert ": R % 4 == 0                          ? 4" in src
     assert [_radix_split(r) for r in (2, 3, 4, 5, 8, 16, 20, 25, 32)] \

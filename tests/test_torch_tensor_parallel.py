@@ -1,6 +1,8 @@
 """The port's tensor parallelism (`parallel/tensor.py`, the 2-D
-`parallel/mesh.py`, whisper's `param_axes`, the TP forward, decode and
-train step, K2's vocab-shard mode) on the CPU.
+`parallel/mesh.py`, whisper's and the classifier's `param_axes`, the TP
+forward, greedy and beam decodes, the vocab-parallel cross-entropy, the
+classifier's and whisper's TP train steps, K2's vocab-shard mode) on the
+CPU.
 
 gloo processes launched by `parallel.launch` run tests/torch_tp_worker.py
 on a `model:2` mesh (2 processes) and on `data:2 x model:2` (4), and the
@@ -20,6 +22,34 @@ bridged. Held to:
   int4 cross K/V; the sampling
   fallback                           the same process's one-process decode
                                      of its rows, token for token
+  beams (3, penalty 1.15, 3-gram
+  ban; kv_quant none, int8, and
+  timestamped)                       JAX's generate_beam: tokens, lengths,
+                                     the kept set equal, scores within
+                                     1e-5 relative; every model rank's
+                                     outputs the same (and the ranks'
+                                     parents and tokens compared every
+                                     step, `check_ranks`)
+  beams with int4, timestamped       the one-process port, the same
+  vocab-parallel cross-entropy       JAX's dual_loss on the gathered logits
+                                     within 1e-6 relative (targets at the
+                                     shards' edges and on the pad id);
+                                     gradients within 1e-6 * max(1, max
+                                     |g|) of the gathered route's; in
+                                     threads (hypothesis) F.cross_entropy's
+                                     values (1e-6 relative + 1e-5) and
+                                     gradients (1e-5 relative + 1e-6),
+                                     float32 sums in another order; ids
+                                     past the vocab ignored
+  the classifier's shards            JAX's urbansound `param_axes`, leaf
+                                     for leaf
+  the classifier's TP forward        JAX's apply (eval mode) within rtol =
+                                     atol = 2e-4
+  one TP classifier step, dropout
+  0.1                                one process: loss 1e-6 relative,
+                                     gradients at hold's 1e-4 * max(1,
+                                     max |g|), every whole leaf bit-equal
+                                     over the model ranks
   one TP train step                  one process on the global batch: loss
                                      1e-6 relative, the clip's norm 1e-6
                                      relative, gradients 1e-4 * max(1,
@@ -29,9 +59,10 @@ bridged. Held to:
                                      rounding-level gradient into a step
                                      of lr either way); every whole leaf
                                      bit-equal over the model ranks
-  one epoch of each trainer, and a    one process's history, 1e-3 relative
-  resume of whisper's to 2 epochs    (hold's), rank 0 alone writing, the
-                                     checkpoints the whole tree
+  one epoch of each trainer, a       one process's history, 1e-3 relative
+  resume of whisper's to 2 epochs,   (hold's), rank 0 alone writing, the
+  and train_classifier(tensor_       checkpoints the whole tree
+  parallel=True) with its resume
   K2 partials merged over t in
   {1, 2, 4} shards                   the whole-vocab plain version, token
                                      for token (rows whose timestamp
@@ -42,6 +73,8 @@ bridged. Held to:
 """
 
 import os
+import threading
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -49,18 +82,22 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
 import torch_tp_worker as worker
 from audio_transformers_tpu.core import config as jcfg
+from audio_transformers_tpu.models.urbansound import model as jus
+from audio_transformers_tpu.models.whisper import beam as jbeam
 from audio_transformers_tpu.models.whisper import decode as jdec
 from audio_transformers_tpu.models.whisper import emotion as jemo
 from audio_transformers_tpu.models.whisper import model as jwm
 from audio_transformers_tpu_torch.core import params as cp
-from audio_transformers_tpu_torch.core.config import (DecodeConfig,
-                                                      WhisperConfig)
-from audio_transformers_tpu_torch.models.whisper import beam
+from audio_transformers_tpu.train import whisper_emotion as jtw
+from audio_transformers_tpu_torch.core.config import WhisperConfig
+from audio_transformers_tpu_torch.models.urbansound import model as us
 from audio_transformers_tpu_torch.models.whisper import emotion as emo
 from audio_transformers_tpu_torch.models.whisper import model as wm
 from audio_transformers_tpu_torch.ops import decode_logits as dl
@@ -142,6 +179,16 @@ def jax_outputs(runs):
             repetition_penalty=d.repetition_penalty,
             no_repeat_ngram_size=d.no_repeat_ngram_size), enc)
         out[case] = {k: np.asarray(got[k]) for k in ("tokens", "lengths")}
+    jfields = set(jcfg.DecodeConfig.__dataclass_fields__)
+    for case in ("beam", "beam_int8", "beam_ts"):
+        d = worker.BEAMS[case]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            got = jbeam.generate_beam(jp["whisper"], cfg.whisper,
+                                      jcfg.DecodeConfig(**{
+                                          k: v for k, v in d.__dict__.items()
+                                          if k in jfields}), enc)
+        out[case] = {k: np.asarray(v) for k, v in got.items()}
     return out
 
 
@@ -214,11 +261,42 @@ def test_param_axes_refuses_a_split_inside_a_head():
         wm.param_axes(params["whisper"], WhisperConfig(), 4)   # tiny: 6
 
 
-def test_beam_search_refuses_a_model_axis():
-    w = worker.WHISPER
-    with pytest.raises(NotImplementedError, match="item 11"):
-        beam.generate_beam({}, w, DecodeConfig(num_beams=2),
-                           torch.zeros(1, 4, w.d_model), model_group=object())
+def test_classifier_param_axes_match_jax():
+    """The classifier's layout is JAX's urbansound PartitionSpecs on the
+    port's (out, in) weights: P(None, "model") cuts the port's dim 0,
+    P("model", None) its dim 1, P("model") a bias's dim 0, P() nothing."""
+    cfg = worker.dpw.CLS
+    params, _ = us.init(cfg, torch.Generator().manual_seed(1))
+    axes = {path: split for (path, _), split in zip(
+        cp.leaves_with_path(params),
+        tp.split_leaves(us.param_axes(params, cfg, 2)))}
+    jp = cp.to_jax_params(params)
+    specs = jax.tree_util.tree_flatten_with_path(
+        jus.param_axes(jp),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
+    assert len(specs) == len(axes)
+    cut = 0
+    for path, spec in specs:
+        port_path = tuple(getattr(k, "key", getattr(k, "idx", None))
+                          for k in path)
+        got = axes[port_path]
+        want = {(): None, ("model",): tp.Split(0),
+                (None, "model"): tp.Split(0),
+                ("model", None): tp.Split(1)}[tuple(spec)]
+        assert got == want, port_path
+        cut += got is not None
+    # per block q/k/v w and b, o w, fc1 w and b, fc2 w
+    assert cut == 10 * cfg.num_encoder_blocks
+
+
+def test_classifier_param_axes_refuse_an_uneven_split():
+    cfg = worker.dpw.CLS                       # 2 heads, 96 hidden units
+    params, _ = us.init(cfg, torch.Generator().manual_seed(1))
+    us.param_axes(params, cfg, 2)
+    with pytest.raises(ValueError, match="heads"):
+        us.param_axes(params, cfg, 4)
+    with pytest.raises(ValueError, match="hidden"):
+        us.param_axes(params, cfg.replace(num_heads=8, encoder_dim=9), 8)
 
 
 # --------------------------------------------------------------------------
@@ -228,8 +306,13 @@ def test_beam_search_refuses_a_model_axis():
 
 @pytest.mark.parametrize("name", MESHES)
 def test_tp_forward_matches_jax(runs, jax_outputs, name):
+    """forward_train's logits (each rank's vocab shard, gathered here) and
+    emotion logits within 2e-4 of JAX's."""
     for r in runs[name]:
         rows = slice(*r["rows"])
+        assert r["forward_width"] == tp.vocab_shard(
+            worker.WHISPER.vocab_size, 2, r["mesh"][3])[1] - tp.vocab_shard(
+            worker.WHISPER.vocab_size, 2, r["mesh"][3])[0]
         for got, want in zip(r["forward"], jax_outputs["forward"]):
             np.testing.assert_allclose(_np(got), want[rows], rtol=2e-4,
                                        atol=2e-4)
@@ -262,6 +345,217 @@ def test_tp_decode_matches_one_process(runs, name, case):
                                r["decode"][case + "_one"][k]), (case, k)
     one = runs["one"]["decode"]
     assert not torch.equal(one["fallback"]["tokens"], one["ts"]["tokens"])
+
+
+def _hold_beams(got, want):
+    for k in ("tokens", "lengths", "beam_tokens", "beam_lengths"):
+        np.testing.assert_array_equal(_np(got[k]), want[k], err_msg=k)
+    np.testing.assert_allclose(_np(got["beam_scores"]), want["beam_scores"],
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("case", ["beam", "beam_int8", "beam_ts"])
+@pytest.mark.parametrize("name", MESHES)
+def test_tp_beams_match_jax(runs, jax_outputs, name, case):
+    """Beams on head shards, the logits gathered to whole rows each
+    step, against JAX's single-device generate_beam of the same rows;
+    every model rank returns the same outputs."""
+    want = jax_outputs[case]
+    for r in runs[name]:
+        rows = slice(*r["rows"])
+        _hold_beams(r["decode"][case], {k: v[rows] for k, v in want.items()})
+        peer = runs[name][r["mesh"][1] * 2]
+        for k in worker.BEAM_KEYS:
+            assert torch.equal(r["decode"][case][k], peer["decode"][case][k])
+    if case == "beam_ts":      # the kept beams mix timestamps and text
+        toks = want["beam_tokens"][..., 1:]
+        assert (toks >= worker.WHISPER.timestamp_begin_id).any()
+
+
+@pytest.mark.parametrize("name", MESHES)
+def test_tp_beams_int4_match_one_process(runs, name):
+    """Timestamped beams over int4 cross K/V: the one-process port's
+    search on the same rows, and its hiddens within 2e-4."""
+    for r in runs[name]:
+        got, one = r["decode"]["beam_int4"], r["decode"]["beam_int4_one"]
+        _hold_beams(got, {k: _np(v) for k, v in one.items()})
+        np.testing.assert_allclose(_np(got["hiddens"]), _np(one["hiddens"]),
+                                   rtol=2e-4, atol=2e-4)
+
+
+# --------------------------------------------------------------------------
+# the vocab-parallel cross-entropy
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", MESHES)
+def test_vocab_parallel_ce_matches_jax_dual_loss(runs, jax_outputs, name):
+    """dual_loss over the vocab shards (targets at the shards' edges and
+    on the pad id) equals JAX's dual_loss on its whole logits of the same
+    rows within 1e-6 relative, and so does the gathered route."""
+    labels = worker.ce_labels()
+    logits, emo_logits = jax_outputs["forward"]
+    for r in runs[name]:
+        rows = slice(*r["rows"])
+        emo_labels = np.arange(worker.BATCH)[rows] \
+            % worker.CFG.num_emotion_classes
+        want = jtw.dual_loss(jnp.asarray(logits[rows]),
+                             jnp.asarray(emo_logits[rows]),
+                             jnp.asarray(labels[rows]),
+                             jnp.asarray(emo_labels),
+                             pad_token_id=worker.WHISPER.pad_token_id,
+                             emotion_weight=0.5)
+        for route in ("parallel", "gathered"):
+            got = r["ce"][route]
+            np.testing.assert_allclose(got["loss"], float(want["loss"]),
+                                       rtol=1e-6)
+            np.testing.assert_allclose(
+                got["transcription"], float(want["transcription_loss"]),
+                rtol=1e-6)
+    # the targets hit both shards and their edges
+    targets = labels[:, 1:]
+    assert np.isin(worker.EDGE_IDS, targets).all()
+
+
+@pytest.mark.parametrize("name", MESHES)
+def test_vocab_parallel_ce_gradients_equal_the_gathered_route(runs, name):
+    for r in runs[name]:
+        par, gat = r["ce"]["parallel"], r["ce"]["gathered"]
+        assert set(par["grads"]) == set(gat["grads"])
+        for path, g in gat["grads"].items():
+            err = float((par["grads"][path] - g).abs().max())
+            assert err <= 1e-6 * max(1.0, float(g.abs().max())), path
+        # the vocab shards' rows of the table took their gradient
+        table = ("whisper", "decoder", "embed", "table")
+        assert float(par["grads"][table].abs().max()) > 0
+
+
+class _Threads:
+    """t threads as the ranks of a model group: `dist.all_reduce` patched
+    to a barrier-synchronised reduction over them (each thread passes its
+    rank as the group)."""
+
+    def __init__(self, t):
+        self.t, self.slots = t, [None] * t
+        self.barrier = threading.Barrier(t)
+
+    def all_reduce(self, x, op=dist.ReduceOp.SUM, group=None):
+        self.slots[group] = x.clone()
+        self.barrier.wait()
+        parts = torch.stack(self.slots)
+        x.copy_(parts.amax(0) if op == dist.ReduceOp.MAX else parts.sum(0))
+        self.barrier.wait()
+
+    def run(self, fn):
+        out = [None] * self.t
+        errors = []
+
+        def body(r):
+            try:
+                out[r] = fn(r)
+            except BaseException as e:      # noqa: BLE001 - re-raised
+                errors.append(e)
+                self.barrier.abort()
+        threads = [threading.Thread(target=body, args=(r,))
+                   for r in range(self.t)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            raise errors[0]
+        return out
+
+
+@settings(max_examples=15, deadline=None, derandomize=True)
+@given(seed=st.integers(0, 2 ** 31 - 1), t=st.sampled_from([2, 4]),
+       edge=st.integers(-2, 1), scale=st.sampled_from([1.0, 30.0]))
+def test_vocab_parallel_ce_at_shard_edges(seed, t, edge, scale):
+    """In t threads: each rank's shard of (B, T, V) float32 logits, the
+    last rank's padded past V = 1000 (padded 1024) with large values that
+    must be ignored; targets at every shard's first and last ids (+ edge).
+    The per-token CE and the gradients equal F.cross_entropy's on the
+    whole logits (float32 sums in another order: 1e-5 absolute on values
+    up to about 100); the padded columns take no gradient."""
+    v = 1000
+    g = torch.Generator().manual_seed(seed)
+    logits = scale * torch.randn((3, 5, v), generator=g)
+    width = dl.pad_vocab(v) // t
+    starts = [tp.vocab_shard(v, t, r)[0] for r in range(t)]
+    ids = torch.tensor([min(max(s + edge, 0), v - 1) for s in starts]
+                       + [min(max(s + width - 1 + edge, 0), v - 1)
+                          for s in starts])
+    targets = ids[torch.randint(0, len(ids), (3, 5), generator=g)]
+    sim = _Threads(t)
+
+    def rank(r):
+        v0, v1, _ = tp.vocab_shard(v, t, r)
+        shard = torch.full((3, 5, width), 1e4)
+        shard[..., :v1 - v0] = logits[..., v0:v1]
+        shard.requires_grad_(True)
+        ce = tp.vocab_parallel_cross_entropy(shard, targets, r, v0, v)
+        (ce * torch.arange(1.0, 16.0).view(3, 5)).sum().backward()
+        return ce.detach(), shard.grad, v1 - v0
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dist, "all_reduce", sim.all_reduce)
+        out = sim.run(rank)
+    whole = logits.clone().requires_grad_(True)
+    want = F.cross_entropy(whole.transpose(1, 2), targets,
+                           reduction="none")
+    (want * torch.arange(1.0, 16.0).view(3, 5)).sum().backward()
+    for r, (ce, grad, n) in enumerate(out):
+        assert torch.allclose(ce, want.detach(), rtol=1e-6, atol=1e-5)
+        v0 = starts[r]
+        assert torch.allclose(grad[..., :n], whole.grad[..., v0:v0 + n],
+                              rtol=1e-5, atol=1e-6)
+        assert (grad[..., n:] == 0).all()
+
+
+# --------------------------------------------------------------------------
+# the classifier's tensor parallelism
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", MESHES)
+def test_tp_classifier_forward_matches_jax(runs, name):
+    """us.apply on each rank's shards, eval mode, within 2e-4 of JAX's
+    apply on the whole tree."""
+    cfg = worker.dpw.CLS
+    params, state = us.init(cfg, torch.Generator().manual_seed(1))
+    want, _ = jus.apply(cp.to_jax_params(params), cp.to_jax_params(state),
+                        jcfg.UrbanSoundConfig(**cfg.__dict__),
+                        jnp.asarray(worker.cls_mel()), training=False)
+    want = np.asarray(want)
+    for r in runs[name]:
+        d_size, d_rank = r["mesh"][:2]
+        per = worker.CLS_MEL[0] // d_size
+        np.testing.assert_allclose(
+            _np(r["classifier"]["logits"]),
+            want[d_rank * per:(d_rank + 1) * per], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("name", MESHES)
+def test_tp_classifier_step_matches_one_process(runs, name):
+    """One TP classifier step with dropout 0.1 (the masks drawn for every
+    head and hidden unit, each rank keeping its own) equals one process's
+    step on the global batch; the whole leaves agree bit for bit over the
+    model ranks."""
+    want = runs["one"]["classifier"]
+    assert want["rows"] == worker.dpw.CLS_BATCH
+    for r in runs[name]:
+        got = r["classifier"]
+        assert got["rows"] == worker.dpw.CLS_BATCH * 2 // RANKS[name]
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-6)
+        assert set(got["grads"]) == set(want["grads"])
+        for path, g in want["grads"].items():
+            err = float((got["grads"][path] - g).abs().max())
+            assert err <= 1e-4 * max(1.0, float(g.abs().max())), path
+        for path, s in want["state"].items():
+            np.testing.assert_allclose(got["state"][path], s, rtol=1e-5,
+                                       atol=1e-6, err_msg=str(path))
+        peer = runs[name][r["mesh"][1] * 2]["classifier"]
+        for path, t in got["whole_leaves"].items():
+            assert torch.equal(t, peer["whole_leaves"][path]), path
 
 
 # --------------------------------------------------------------------------
@@ -340,6 +634,30 @@ def test_trainers_on_a_model_axis_match_one_process(runs, name, trainer):
                 == {p: t.shape for p, t in full.items()}
         assert sorted(os.listdir(d)) == sorted(os.listdir(os.path.join(
             runs["dir"], "one", "whisper")))
+
+
+@pytest.mark.parametrize("name", MESHES)
+def test_classifier_trainer_cut_over_the_model_axis(runs, name):
+    """train_classifier(tensor_parallel=True): one epoch, then a resume
+    to 2 epochs from its own checkpoint (the whole tree, cut again), each
+    equal to one process's (1e-3 relative, hold's); the returned params
+    are the whole tree."""
+    want = runs["one"]["trainers"]
+    for r in runs[name]:
+        got = r["trainers"]
+        for run_got, run_want in zip(got["classifier_tp"],
+                                     want["classifier_tp"]):
+            assert [g["epoch"] for g in run_got] \
+                == [w["epoch"] for w in run_want]
+            for g, w in zip(run_got, run_want):
+                for k, v in w.items():
+                    if k not in ("clips_per_sec", "data_wait_s"):
+                        np.testing.assert_allclose(g[k], v, rtol=1e-3,
+                                                   err_msg=k)
+        assert {p: t.shape for p, t in got["classifier_tp_params"].items()} \
+            == {p: t.shape for p, t in
+                want["classifier_tp_params"].items()}
+    assert [len(h) for h in want["classifier_tp"]] == [1, 1]   # resumed
 
 
 # --------------------------------------------------------------------------

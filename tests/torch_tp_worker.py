@@ -7,21 +7,38 @@ computed:
 
   mesh       (data size, data rank, model size, model rank)
   shards     this rank's leaves, by path
-  forward    forward_train's logits and emotion logits on its data rows
+  forward    forward_train's logits (its vocab shard gathered) and emotion
+             logits on its data rows, and the shard's width
   decode     per case, tokens and lengths of `generate` on its data rows:
              "greedy" (penalty 1.15, 3-gram ban), "ts" (the same,
              timestamped), "int4" (timestamped, int4 cross K/V) and
              "fallback" (timestamped, every row re-decoded at temperature
              0.7), each beside this process's one-process decode of the
-             same rows ("<case>_one")
+             same rows ("<case>_one"); and `generate_beam`'s outputs
+             (3 beams, the same processors) for "beam" (kv_quant none),
+             "beam_int8", "beam_ts" (timestamped) and "beam_int4"
+             (timestamped, int4), with the ranks' choices compared every
+             step (`check_ranks`)
+  ce         the dual loss of forward_train on its data rows, its targets
+             at the vocab shards' edges and on the pad id, through the
+             vocab-parallel cross-entropy and through the gathered logits:
+             each route's loss and whole gradients
+  classifier the classifier (tests/torch_dp_worker.py's CLS, dropout 0.1)
+             on this rank's shards (`us.param_axes`): its eval-mode logits
+             on its data rows, and one TP train step with dropout (the
+             mean loss over the ranks, the whole gradients and this rank's
+             copy of every whole leaf after the step)
   step       one TP dual-loss train step (tests/torch_dp_worker.py's
              whisper case, grad clip 0.5): the mean loss over the ranks,
              the clip's norm, the gathered gradients and updated
              parameters, and this rank's copy of every whole leaf
   trainers   one epoch of `train_whisper_emotion` (writing under
              <out_dir>/<mesh>/whisper), a second run there to 2 epochs
-             (resuming from the first's checkpoint) and one epoch of
-             `train_classifier`, their histories
+             (resuming from the first's checkpoint), one epoch of
+             `train_classifier`, and one of `train_classifier(
+             tensor_parallel=True)` with a checkpoint directory and a
+             second run there to 2 epochs: their histories, and the
+             last run's returned params
 
 Alone (mesh "one") it is the one-process run. See
 tests/test_torch_tensor_parallel.py.
@@ -30,6 +47,7 @@ tests/test_torch_tensor_parallel.py.
 from __future__ import annotations
 
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -40,6 +58,8 @@ from audio_transformers_tpu_torch.core.config import (DecodeConfig,
                                                       EmotionWhisperConfig,
                                                       WhisperConfig)
 from audio_transformers_tpu_torch.data.loader import Batcher
+from audio_transformers_tpu_torch.models.urbansound import model as us
+from audio_transformers_tpu_torch.models.whisper import beam as wbeam
 from audio_transformers_tpu_torch.models.whisper import decode as wdecode
 from audio_transformers_tpu_torch.models.whisper import emotion as emo
 from audio_transformers_tpu_torch.models.whisper import model as wm
@@ -76,7 +96,23 @@ DECODES = {
     "fallback": DecodeConfig(max_new_tokens=10, return_timestamps=True,
                              compression_ratio_threshold=1e-6, **CHAIN),
 }
+BEAMS = {
+    "beam": DecodeConfig(max_new_tokens=10, num_beams=3, **CHAIN),
+    "beam_int8": DecodeConfig(max_new_tokens=10, num_beams=3,
+                              kv_quant="int8", **CHAIN),
+    "beam_ts": DecodeConfig(max_new_tokens=10, num_beams=3,
+                            return_timestamps=True, **CHAIN),
+    "beam_int4": DecodeConfig(max_new_tokens=10, num_beams=3,
+                              kv_quant="int4", return_timestamps=True,
+                              **CHAIN),
+}
+BEAM_KEYS = ("tokens", "lengths", "beam_tokens", "beam_scores",
+             "beam_lengths", "hiddens")
 CLIP = 0.5
+# CE targets at the vocab shards' edges (t = 2: 26112 ids a shard, the
+# second's real run ending at 51864) and the pad id
+EDGE_IDS = (0, 26111, 26112, 51864, 50257, 13055, 13056, 39168)
+CLS_MEL = (4, 44, 64)     # (B, frames, n_mels) of the classifier's forward
 
 
 def inputs():
@@ -86,6 +122,22 @@ def inputs():
                                WHISPER.n_mels)).astype(np.float32)
     ids = rng.integers(0, WHISPER.vocab_size, (BATCH, 7))
     return mel, ids
+
+
+def ce_labels() -> np.ndarray:
+    """(BATCH, 8) labels whose targets (columns 1:) are the decoder ids'
+    shifted ones, with the shard-edge ids and the pad id set in."""
+    _, ids = inputs()
+    labels = np.concatenate([ids, ids[:, :1]], axis=1)
+    flat = labels[:, 1:].reshape(-1)
+    flat[::3][:len(EDGE_IDS)] = EDGE_IDS
+    labels[:, 1:] = flat.reshape(BATCH, 7)
+    return labels
+
+
+def cls_mel() -> np.ndarray:
+    return np.random.default_rng(3).standard_normal(CLS_MEL).astype(
+        np.float32)
 
 
 def _host(tree) -> dict:
@@ -106,7 +158,87 @@ def decodes(whole: dict, shards: dict, mesh, rows: slice) -> dict:
                 got = wdecode.generate_with_fallback(
                     params["whisper"], WHISPER, dcfg, e, model_group=g)
                 out[key] = {k: got[k].clone() for k in ("tokens", "lengths")}
+        for name, dcfg in BEAMS.items():
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")     # int4's warning
+                got = wbeam.generate_beam(shards["whisper"], WHISPER, dcfg,
+                                          enc, model_group=group,
+                                          check_ranks=True)
+                one = wbeam.generate_beam(whole["whisper"], WHISPER, dcfg,
+                                          enc_one)
+            out[name] = {k: got[k].clone() for k in BEAM_KEYS}
+            out[name + "_one"] = {k: one[k].clone() for k in BEAM_KEYS}
     return out
+
+
+def ce_routes(shards: dict, axes: dict, mesh, rows: slice) -> dict:
+    """The dual loss on this rank's rows (no data group: each data rank's
+    own token mean) through `dual_loss(model_group=)` and through the
+    gathered logits: each route's loss and whole gradients."""
+    group = mesh.model_group
+    mel, ids = (torch.from_numpy(x[rows]) for x in inputs())
+    labels = torch.from_numpy(ce_labels()[rows])
+    emo_labels = torch.arange(BATCH)[rows] % CFG.num_emotion_classes
+    out = {}
+    for route in ("parallel", "gathered"):
+        params = cp.set_trainable(cp.map_tensors(
+            shards, lambda t: t.detach().clone()))
+        logits, emo_logits = emo.forward_train(params, CFG, mel, ids,
+                                               model_group=group)
+        kw = dict(pad_token_id=WHISPER.pad_token_id, emotion_weight=0.5)
+        if route == "parallel":
+            kw.update(model_group=group, vocab_size=WHISPER.vocab_size)
+        else:
+            logits = tp.gather_vocab(logits, group, WHISPER.vocab_size)
+        loss = tw.dual_loss(logits, emo_logits, labels, emo_labels, **kw)
+        loss["loss"].backward()
+        grads = cp.map_tensors(params, lambda t: (
+            t.grad if t.grad is not None else torch.zeros_like(t)))
+        whole = (tp.gather_params(grads, group, axes) if group is not None
+                 else grads)
+        out[route] = {"loss": loss["loss"].item(),
+                      "transcription": loss["transcription_loss"].item(),
+                      "grads": _host(whole)}
+    return out
+
+
+def classifier(mesh) -> dict:
+    """The classifier on this rank's shards: eval-mode logits on its
+    data rows of `cls_mel()`, then one TP train step with dropout."""
+    cfg = dpw.CLS
+    params, state = us.init(cfg, torch.Generator().manual_seed(1))
+    axes = us.param_axes(params, cfg, mesh.model_size)
+    group = mesh.model_group
+    params = cp.set_trainable(
+        tp.shard_params(params, mesh.model_size, mesh.model_rank, axes),
+        frozen=())
+    per = CLS_MEL[0] // mesh.size
+    mel = torch.from_numpy(cls_mel()[mesh.rank * per:(mesh.rank + 1) * per])
+    with torch.no_grad():
+        logits, _ = us.apply(params, state, cfg, mel, training=False,
+                             model_group=group)
+    tcfg = dpw.cls_tcfg()
+    opt = optim.build_optimizer(tcfg.optimizer, params, model_group=group,
+                                axes=axes if group is not None else None)
+    step, _ = tc.make_steps(cfg, dpw.MEL_CLS, tcfg, opt, mesh,
+                            tensor_parallel=True)
+    batcher = Batcher(dpw.cls_source(), dpw.CLS_BATCH, dpw.CLS_BATCH)
+    host = next(batcher.train_epochs(epoch=0))
+    state, m = step(params, state, common.batch_to_device(host, "cpu"),
+                    common.rank_generator(torch.Generator().manual_seed(3),
+                                          mesh))
+    grads = cp.map_tensors(params, lambda t: (
+        t.grad if t.grad is not None else torch.zeros_like(t)))
+    splits = (tp.split_leaves(axes) if group is not None
+              else [None] * len(cp.leaves_with_path(params)))
+    return {"logits": logits.clone(), "rows": host["label"].shape[0],
+            "loss": common.mean_over_ranks(m, mesh)["loss"],
+            "grads": _host(tp.gather_params(grads, group, axes)
+                           if group is not None else grads),
+            "state": _host(state),
+            "whole_leaves": {p: t.detach().clone() for (p, t), s in
+                             zip(cp.leaves_with_path(params), splits)
+                             if s is None}}
 
 
 def train_step(mesh) -> dict:
@@ -169,9 +301,21 @@ def trainers(mesh_shape, out_dir) -> dict:
         Batcher(dpw.cls_source(16), 16, dpw.CLS_BATCH),
         Batcher(dpw.cls_source(11, seed=2), 11, dpw.CLS_BATCH),
         device="cpu", log_dir=os.path.join(out_dir, "classifier"))
+    # the classifier cut over the model axis, its checkpoints the whole
+    # tree (a resume run to 2 epochs cuts them again)
+    ckpt = os.path.join(out_dir, "classifier_tp", "ckpt")
+    cls_tp = [tc.train_classifier(
+        dpw.CLS, dpw.MEL_CLS, dpw.cls_tcfg(mesh_shape=mesh_shape,
+                                           checkpoint_dir=ckpt).replace(
+                                               num_epochs=epochs),
+        Batcher(dpw.cls_source(16), 16, dpw.CLS_BATCH),
+        Batcher(dpw.cls_source(11, seed=2), 11, dpw.CLS_BATCH),
+        device="cpu", tensor_parallel=True) for epochs in (1, 2)]
     return {"whisper": wh["history"], "classifier": cls["history"],
             "whisper_params": _host(wh["params"]),
-            "whisper_resumed": resumed["history"]}
+            "whisper_resumed": resumed["history"],
+            "classifier_tp": [r["history"] for r in cls_tp],
+            "classifier_tp_params": _host(cls_tp[-1]["params"])}
 
 
 def run(out_dir: str, mesh_name: str) -> None:
@@ -187,10 +331,14 @@ def run(out_dir: str, mesh_name: str) -> None:
     with torch.no_grad():
         logits, emo_logits = emo.forward_train(
             shards, CFG, mel, ids, model_group=mesh.model_group)
+    width = logits.shape[-1]
+    logits = tp.gather_vocab(logits, mesh.model_group, WHISPER.vocab_size)
     out = {"mesh": (mesh.size, mesh.rank, mesh.model_size, mesh.model_rank),
            "shards": _host(shards), "rows": (rows.start, rows.stop),
-           "forward": (logits, emo_logits),
+           "forward": (logits, emo_logits), "forward_width": width,
            "decode": decodes(whole, shards, mesh, rows),
+           "ce": ce_routes(shards, axes, mesh, rows),
+           "classifier": classifier(mesh),
            "step": train_step(mesh)}
     out["trainers"] = trainers(MESHES[mesh_name],
                                os.path.join(out_dir, mesh_name))
