@@ -316,13 +316,18 @@ class DecodeConfig(_ConfigBase):
     # token parity with fp32/bf16 decode is only approximate under
     # quantization.
     kv_quant: str = "none"
-    # "auto" | "fused" | "xla": how the per-step vocab projection + logit
-    # processors + token pick run. "fused" is the Pallas kernel that never
-    # materializes the (B, V) logits in HBM (ops/decode_logits.py; greedy
-    # decodes only, including timestamped ones — sampling always takes
-    # the XLA chain). "auto" resolves to "fused" on TPU where it measures
-    # faster in-pipeline (decode.resolve_logits_impl has the measured
-    # scope). Token-for-token identical to "xla" (tests/test_decode.py).
+    # "auto" | "fused" | "xla": how a greedy step's vocab projection,
+    # logit processors and token pick run (decode.resolve_logits_impl).
+    # "fused" is K2 (ops/decode_logits.fused_greedy_step: the (B, V)
+    # logits never reach device memory); "xla" materialises the float32
+    # logits and runs decode._process_logits and an argmax, the
+    # reference's XLA chain; sampling always takes "xla". "auto" is
+    # "fused" on the card and on the CPU (where K2's plain version runs):
+    # the decode loop is held by the host, and the materialised chain
+    # adds several launches a step for K2's one, which on an H100
+    # (chip_smoke.py phase 31, PERF.md) never made a greedy step faster
+    # beyond the run-to-run spread. The reference's "auto" differs: XLA
+    # off a TPU. Anything else raises ValueError.
     logits_impl: str = "auto"
     # "auto" | "mm" | "take" | "pallas": how beam search's per-step
     # parent reorder of the self-KV cache runs (HF _reorder_cache).
@@ -360,18 +365,24 @@ class DecodeConfig(_ConfigBase):
     # jit-cache-key rationale as self_kv_min. Tie caveat in
     # beam.resolve_beam_topk.
     beam_topk: str = "auto"
-    # Minimum decode-buffer length at which the incrementally-written
-    # self-attention KV cache is quantized alongside the cross KV; below
-    # it the per-step quantize/dequantize VPU work exceeds the bandwidth
-    # saved on the tiny cache re-read. A CONFIG field (not an env var) on
-    # purpose: it changes the traced program, and env vars are not part
-    # of the jit cache key — flipping one between calls with identical
-    # static args silently reuses the first-compiled program (CLAUDE.md
-    # "A/B variants MUST occupy distinct jit cache entries").
+    # Minimum decode-buffer length at which the self-attention KV cache
+    # is quantized (int8, for kv_quant "int8" and "int4") alongside the
+    # cross K/V (decode.generate); shorter decodes keep it in the
+    # activation dtype. It changes the numerics, so the port keeps the
+    # reference's 192; on the card the int8 self cache costs more
+    # launches a step than it saves in bytes at whisper-tiny's widths.
     self_kv_min: int = 192
-    # "auto" | "fused" | "xla": the decode-step cross-attention kernel
-    # (models/whisper/model.resolve_step_attn). Same cache-key rationale
-    # as self_kv_min.
+    # "auto" | "fused" | "xla": a greedy or sampled decode step's
+    # cross-attention (models/whisper/model.resolve_step_attn). "fused" is
+    # K1 (ops/decode_attention.decode_cross_attention: q and p never
+    # quantized); "xla" is the reference's XLA arithmetic
+    # (model.xla_cross_attention: int8 quantizes q and p). "auto" is
+    # "fused" on the card and on the CPU: on an H100 (chip_smoke.py phase
+    # 31, PERF.md) the XLA arithmetic, several launches a layer for K1's
+    # one, made the greedy step slower with int8 and int4 cross K/V, in
+    # float32 and bf16, and lay within the run-to-run spread with
+    # kv_quant none. The reference's "auto" is XLA off a TPU. Beams
+    # ignore it in both packages. Anything else raises ValueError.
     step_attn: str = "auto"
 
 

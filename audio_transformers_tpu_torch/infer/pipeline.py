@@ -54,7 +54,10 @@ class EmotionWhisperPipeline:
     `device` here; "cuda" by default, and an error when there is no card).
     compute_dtype: the activation dtype of the encoder and decoder; by
     default bfloat16 on the card and float32 on the CPU. num_beams > 1
-    decodes by beam search (`models/whisper/beam.py`)."""
+    decodes by beam search (`models/whisper/beam.py`). step_attn and
+    logits_impl ("auto", "fused" or "xla") go to `analyze_windows`'s
+    DecodeConfig: the greedy routes of K1 and K2 or the reference's XLA
+    arithmetic (`decode.generate`)."""
 
     def __init__(self, params: dict, cfg: EmotionWhisperConfig,
                  mel_cfg: Optional[MelConfig] = None,
@@ -62,7 +65,8 @@ class EmotionWhisperPipeline:
                  tokenizer=None, *, device="cuda",
                  compute_dtype: Optional[torch.dtype] = None,
                  suppress_ids=None, kv_quant: str = "none",
-                 num_beams: int = 1):
+                 num_beams: int = 1, step_attn: str = "auto",
+                 logits_impl: str = "auto"):
         self.device = resolve_device(device)
         self.params = to_device(params, self.device)
         self.cfg = cfg
@@ -73,6 +77,8 @@ class EmotionWhisperPipeline:
         self.compute_dtype = compute_dtype or compute_dtype_for(self.device)
         self.kv_quant = kv_quant
         self.num_beams = num_beams
+        self.step_attn = step_attn
+        self.logits_impl = logits_impl
         self.suppress_ids = tuple(
             suppress_ids if suppress_ids is not None
             else wdecode.default_suppress_ids(cfg.whisper))
@@ -206,7 +212,9 @@ class EmotionWhisperPipeline:
         n = windows.shape[0]
         dcfg = DecodeConfig(max_new_tokens=max_new_tokens,
                             repetition_penalty=1.15, no_repeat_ngram_size=3,
-                            kv_quant=self.kv_quant, num_beams=self.num_beams)
+                            kv_quant=self.kv_quant, num_beams=self.num_beams,
+                            step_attn=self.step_attn,
+                            logits_impl=self.logits_impl)
         bucket = 1
         while bucket < min(n, max_batch):
             bucket *= 2

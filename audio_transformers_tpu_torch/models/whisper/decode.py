@@ -16,23 +16,25 @@ begin-suppress at the first generated position, padded vocab tail, and
 penalty, the no-repeat-ngram ban and, with `return_timestamps`, the
 whisper timestamp rules (three bounds per row and the probability rule),
 then argmax. On a CUDA device that is the hand-written kernel K2; on the
-CPU its plain version. With `temperature` > 0 a token is drawn instead:
-the full (B, V) float32 logits (`hidden @ table.T`, a plain product, as
-the reference leaves it to XLA) go through `_process_logits`, the
-processor chain with the full timestamp rule, and the draw is
-`argmax(logits / T + g)` with Gumbel noise g (`gumbel_noise`), which is
-what `jax.random.categorical` computes. Positions inside the forced
-prompt take the prompt token.
+CPU its plain version. With `logits_impl="xla"`, and always with
+`temperature` > 0 (`resolve_logits_impl`), the full (B, V) float32 logits
+(`hidden @ table.T`, a plain product, as the reference leaves it to XLA)
+go through `_process_logits`, the processor chain with the full timestamp
+rule, and the token is their argmax (the lowest id wins a tie) or, when
+sampling, `argmax(logits / T + g)` with Gumbel noise g (`gumbel_noise`),
+which is what `jax.random.categorical` computes. `step_attn` picks the
+decoder step's cross-attention (`model.resolve_step_attn`). Positions
+inside the forced prompt take the prompt token.
 
 Under tensor parallelism (`model_group`, the parameters this rank's shards
 of `models/whisper/model.py:param_axes`) each rank runs the decoder step
 on its heads and hidden units and K2 in its vocab-shard mode over its
 columns of the padded table: one all-gather of the (B, 2..6) row partials
-over the model group, then `merge_partials`, on every rank. The sampling
-fallback gathers the rank's logits to the whole vocab (`gather_vocab`)
-and draws the same noise on every rank (the generator seeded alike), so
-every rank holds the same tokens and `finished` flags, and leaves the
-loop at the same step.
+over the model group, then `merge_partials`, on every rank. The "xla"
+logits, and so sampling, gather the rank's logits to the whole vocab
+(`gather_vocab`); sampling draws the same noise on every rank (the
+generator seeded alike). So every rank holds the same tokens and
+`finished` flags, and leaves the loop at the same step.
 """
 
 from __future__ import annotations
@@ -136,6 +138,22 @@ def _process_logits(logits: torch.Tensor, tokens: torch.Tensor, pos: int,
     return logits
 
 
+def resolve_logits_impl(dcfg: DecodeConfig) -> str:
+    """`DecodeConfig.logits_impl` -> "fused" (K2, `fused_greedy_step`) or
+    "xla" (the logits materialised, `_process_logits`, argmax). Sampling
+    always takes "xla", as in the reference: it needs the whole
+    distribution, which K2 never materialises. "auto" is "fused" on every
+    device (on the CPU K2's plain version runs); the reference's "auto"
+    is its kernel on a TPU for some processor chains and XLA elsewhere.
+    Anything else raises ValueError."""
+    impl = dcfg.logits_impl
+    if impl not in ("auto", "fused", "xla"):
+        raise ValueError(f"unknown logits_impl {impl!r}")
+    if dcfg.temperature and dcfg.temperature > 0.0:
+        return "xla"
+    return "fused" if impl == "auto" else impl
+
+
 def gumbel_noise(shape: Tuple[int, ...],
                  generator: torch.Generator) -> torch.Tensor:
     """float32 Gumbel(0, 1) noise of `shape` on the generator's device:
@@ -170,6 +188,8 @@ def generate(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
         raise ValueError("num_beams > 1 decodes through "
                          "beam.generate_beam, not generate")
     sampling = bool(dcfg.temperature and dcfg.temperature > 0.0)
+    fused = resolve_logits_impl(dcfg) == "fused"
+    step_attn = wm.resolve_step_attn(dcfg.step_attn)
     if prompt is None:
         prompt = build_prompt(cfg, dcfg)
     p_len = len(prompt)
@@ -196,30 +216,33 @@ def generate(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
                                           quant=dcfg.kv_quant)
     step_params = wm.prepare_decode_params(params, cfg, dtype=enc.dtype)
 
-    # the fused step's padded operands, built once outside the loop: the
-    # rank's columns [v0, v0 + width) of the padded table, bias and masks
+    # the rank's columns [v0, v0 + width) of the padded vocab
     v0, v1, width = tp.vocab_shard(cfg.vocab_size, t_size,
                                    tp.model_rank(model_group))
-    v_pad = dl.pad_vocab(cfg.vocab_size)
-    table_t = torch.zeros((cfg.d_model, width), dtype=enc.dtype, device=dev)
-    table_t[:, :v1 - v0] = step_params["embed"]["table"].t()
-    # the timestamp rules' one position-independent mask: <|notimestamps|>
-    # is always suppressed
-    static_ids = tuple(suppress_ids) + ((cfg.no_timestamps_token_id,)
-                                        if dcfg.return_timestamps else ())
-    add_base = lp.suppress_vector(v_pad, static_ids, vocab=cfg.vocab_size,
-                                  device=dev)[v0:v0 + width].clone()
-    add_begin = lp.suppress_vector(v_pad, static_ids
-                                   + tuple(begin_suppress_ids),
-                                   vocab=cfg.vocab_size,
-                                   device=dev)[v0:v0 + width].clone()
-    ts_begin = cfg.timestamp_begin_id if dcfg.return_timestamps else None
-    if sampling:
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
+    if fused:
+        # the fused step's padded operands, built once outside the loop:
+        # the rank's columns of the padded table, bias and masks
+        v_pad = dl.pad_vocab(cfg.vocab_size)
+        table_t = torch.zeros((cfg.d_model, width), dtype=enc.dtype,
+                              device=dev)
+        table_t[:, :v1 - v0] = step_params["embed"]["table"].t()
+        # the timestamp rules' one position-independent mask:
+        # <|notimestamps|> is always suppressed
+        static_ids = tuple(suppress_ids) + (
+            (cfg.no_timestamps_token_id,) if dcfg.return_timestamps else ())
+        add_base = lp.suppress_vector(
+            v_pad, static_ids, vocab=cfg.vocab_size,
+            device=dev)[v0:v0 + width].clone()
+        add_begin = lp.suppress_vector(
+            v_pad, static_ids + tuple(begin_suppress_ids),
+            vocab=cfg.vocab_size, device=dev)[v0:v0 + width].clone()
+        ts_begin = cfg.timestamp_begin_id if dcfg.return_timestamps else None
+    else:
         table = step_params["embed"]["table"].float()   # compute-dtype values
         masks = suppress_masks(cfg.vocab_size, suppress_ids,
                                begin_suppress_ids, dev)
+    if sampling and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
     # seen-token mask for the repetition penalty: seeded with position 0
     # and extended by every token written (prompt-forced and post-EOS pads
     # included), so it always marks exactly the ids in tokens[:, :pos]
@@ -237,14 +260,15 @@ def generate(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
         i = cache["index"]
         hidden, cache = wm.apply_decoder_step(step_params, cfg, tokens[:, i],
                                               cache, cross,
-                                              model_group=model_group)
+                                              model_group=model_group,
+                                              step_attn=step_attn)
         hiddens[:, i] = hidden
         pos = i + 1   # position being generated
         if sampling:
             noise = gumbel_noise((batch, cfg.vocab_size), generator)
         if pos < p_len:
             nxt = prompt_t[pos].expand(batch)
-        elif sampling:
+        elif not fused:
             logits = tp.gather_vocab(torch.matmul(hidden.float(), table.t()),
                                      model_group, cfg.vocab_size)
             logits = _process_logits(
@@ -252,7 +276,9 @@ def generate(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
                 seen=(_whole_seen(seen, model_group, cfg.vocab_size)
                       if track_seen else None),
                 finished=finished)
-            nxt = torch.argmax(logits / dcfg.temperature + noise, dim=-1)
+            if sampling:
+                logits = logits / dcfg.temperature + noise
+            nxt = torch.argmax(logits, dim=-1)
         else:
             ban = (lp.ngram_ban_mask(tokens, pos, n, width, finished,
                                      offset=None if model_group is None
@@ -286,7 +312,8 @@ def generate(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
     i = cache["index"]
     hidden, cache = wm.apply_decoder_step(step_params, cfg, tokens[:, i],
                                           cache, cross,
-                                          model_group=model_group)
+                                          model_group=model_group,
+                                          step_attn=step_attn)
     hiddens[:, i] = hidden
 
     positions = torch.arange(length, device=dev)[None, :]

@@ -21,7 +21,9 @@ decode step, self and cross K/V keep the reference's time-minor
 (B, H, hd, T) layout.
 Cross-attention runs through the hand-written kernel
 `ops.decode_attention.decode_cross_attention` (its plain version on the
-CPU), over bf16/f32, int8 or nibble-packed int4 cross K/V; with beams, the
+CPU), over bf16/f32, int8 or nibble-packed int4 cross K/V, or, with
+`step_attn="xla"`, through `xla_cross_attention`, the reference's XLA
+arithmetic (`resolve_step_attn`); with beams, the
 beams of a row share its cross K/V in one batched product instead. Self-attention over the short cache (bf16/f32, or int8
 with per-step scales) stays plain PyTorch, as it stays XLA in the
 reference. Unlike the reference's functional cache, the port's cache is
@@ -42,7 +44,8 @@ from audio_transformers_tpu_torch.core.config import WhisperConfig
 from audio_transformers_tpu_torch.core.params import map_tensors
 from audio_transformers_tpu_torch.ops import nn
 from audio_transformers_tpu_torch.ops.decode_attention import (
-    decode_cross_attention, pack_int4, unpack_int4)
+    decode_cross_attention, decode_cross_attention_reference, pack_int4,
+    unpack_int4)
 from audio_transformers_tpu_torch.ops.decode_logits import pad_vocab
 from audio_transformers_tpu_torch.parallel import tensor as tp
 
@@ -381,9 +384,59 @@ def _beam_cross_attention(cq: Tensor, k: Tensor, v: Tensor,
     return out.transpose(1, 2).reshape(rows, h, hd)
 
 
+def resolve_step_attn(step_attn: str) -> str:
+    """`DecodeConfig.step_attn` -> "fused" (K1, `decode_cross_attention`)
+    or "xla" (`xla_cross_attention`). "auto" is "fused" on every device
+    (on the CPU K1's plain version runs); the reference's "auto" is its
+    kernel on a TPU and XLA elsewhere. Anything else raises ValueError."""
+    if step_attn not in ("auto", "fused", "xla"):
+        raise ValueError(f"unknown step_attn {step_attn!r}")
+    return "fused" if step_attn == "auto" else step_attn
+
+
+def xla_cross_attention(q: Tensor, k: Tensor, v: Tensor,
+                        k_scale: Optional[Tensor] = None,
+                        v_scale: Optional[Tensor] = None, *,
+                        scale: float) -> Tensor:
+    """One decode step's cross-attention as the reference computes it
+    with step_attn="xla" (the greedy branches of `apply_decoder_step` in
+    `audio_transformers_tpu/models/whisper/model.py`), for q (B, H, hd)
+    in the activation dtype over the K/V of `precompute_cross_attention`;
+    returns (B, H, hd) in q's dtype. Unlike K1, int8 quantizes q and p:
+
+      int4: the kernel's oracle on the unpadded K/V
+        (`decode_cross_attention_reference`, K1's plain version);
+      int8: q quantized per (b, h) row (`_q8`), the integer logits scaled
+        back by q's scale, k_scale and the softmax scale; the
+        probabilities quantized per row (max p / 127) and their integer
+        product with V scaled by p's scale and v_scale. QK sums hd
+        products of at most 127^2 (1.03e6 at hd 64): exact in float32.
+        PV sums T products of at most 127^2 (2.4e7 at whisper's 1500
+        keys), past float32's 2^24, so it accumulates in float64, where
+        every such sum is exact, as the reference's int32 is;
+      bf16/f32: float32 logits, the probabilities rounded to q's dtype,
+        PV accumulated in float32."""
+    if k_scale is not None and k_scale.dim() == 4:
+        return decode_cross_attention_reference(
+            q, k, v, k_scale=k_scale, v_scale=v_scale, scale=scale)
+    if k_scale is not None:
+        qq, qs = _q8(q)
+        logits = (torch.einsum("bhd,bhdk->bhk", qq, k.float()) * qs
+                  * k_scale * scale)
+        p = torch.softmax(logits, dim=-1)
+        ps = p.amax(dim=-1, keepdim=True) / 127.0
+        pv = torch.einsum("bhk,bhdk->bhd", torch.round(p / ps).double(),
+                          v.double())
+        return (pv.float() * ps * v_scale).to(q.dtype)
+    logits = torch.einsum("bhd,bhdk->bhk", q.float(), k.float()) * scale
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhk,bhdk->bhd", p.float(), v.float()).to(q.dtype)
+
+
 def apply_decoder_step(sp: dict, cfg: WhisperConfig, token: Tensor,
                        cache: dict, cross: dict, *, beams: int = 1,
-                       model_group=None) -> Tuple[Tensor, dict]:
+                       model_group=None,
+                       step_attn: str = "auto") -> Tuple[Tensor, dict]:
     """One decode step over the step-ready weights `sp`
     (`prepare_decode_params`). token (B,) int64 -> (hidden (B, d_model),
     cache).
@@ -400,7 +453,8 @@ def apply_decoder_step(sp: dict, cfg: WhisperConfig, token: Tensor,
     beams > 1: token and cache hold B*beams rows while `cross`, from
     `beam_cross`, holds the B encoder rows, shared by the beams of each
     row (`_beam_cross_attention`); the cross-attention kernel K1 is
-    single-query and is not called, as in the reference.
+    single-query and is not called, as in the reference. Otherwise
+    `step_attn` (`resolve_step_attn`) picks K1 or `xla_cross_attention`.
 
     With a `model_group`, `sp`, `cache` and `cross` hold this rank's heads
     and hidden units and its rows of the embedding (`param_axes`): the
@@ -418,6 +472,9 @@ def apply_decoder_step(sp: dict, cfg: WhisperConfig, token: Tensor,
     cross_quant = "k_scale" in cross
     self_quant = "k_scale" in cache
     group = model_group
+    cross_attention = (decode_cross_attention
+                       if resolve_step_attn(step_attn) == "fused"
+                       else xla_cross_attention)
 
     x = nn.embedding_lookup(sp["embed"], token, group, cfg.vocab_size)
     x = x + sp["pos"][idx][None, :]
@@ -467,9 +524,9 @@ def apply_decoder_step(sp: dict, cfg: WhisperConfig, token: Tensor,
                                           k_scale, v_scale, beams, scale,
                                           cross["p_dtype"])
         else:
-            cattn = decode_cross_attention(cq, cross["k"][li],
-                                           cross["v"][li], k_scale=k_scale,
-                                           v_scale=v_scale, scale=scale)
+            cattn = cross_attention(cq, cross["k"][li], cross["v"][li],
+                                    k_scale=k_scale, v_scale=v_scale,
+                                    scale=scale)
         x = x + nn.row_linear(bp["cross_o"], cattn.to(x.dtype).reshape(b, d),
                               group)
 

@@ -125,18 +125,26 @@ def all_reduce_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return t
 
 
+def bucketed(tensors: Sequence[torch.Tensor], collective) -> None:
+    """Runs `collective(flat)` in place on one flat bucket of `tensors`
+    (one dtype) and copies the result back into them."""
+    with torch.no_grad():
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        collective(flat)
+        # one multi-tensor launch, not one copy per leaf (168 for
+        # whisper-tiny, which left the card waiting on the host)
+        torch._foreach_copy_(tensors, [
+            part.view_as(t) for part, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)])
+
+
 def average_gradients(params: Sequence[torch.Tensor], mesh: Mesh) -> None:
     """Replaces each parameter's gradient by its mean over the ranks: one
     all-reduce of a flat bucket of every gradient (one dtype)."""
     if mesh.group is None:
         return
-    grads = [p.grad for p in params if p.grad is not None]
-    with torch.no_grad():
-        flat = torch.cat([g.reshape(-1) for g in grads])
+
+    def mean(flat):
         dist.all_reduce(flat, group=mesh.group)
         flat /= mesh.size
-        # one multi-tensor launch, not one copy per leaf (168 for
-        # whisper-tiny, which left the card waiting on the host)
-        torch._foreach_copy_(grads, [
-            part.view_as(g) for part, g in
-            zip(flat.split([g.numel() for g in grads]), grads)])
+    bucketed([p.grad for p in params if p.grad is not None], mean)

@@ -35,8 +35,10 @@ rank holds a replica and its data rank's rows, as in the reference
 `tensor_parallel` is set: each model rank then holds its shards of the
 parameters (`us.param_axes`) and of Adam's moments, the steps run the
 sharded model (K3 on every rank), the gradients are averaged over the
-data axis only, and the checkpoints hold the whole tree (gathered on
-every rank, written by rank 0).
+data axis only, the whole leaves' gradients are the model group's first
+rank's (`optim.Optimizer.reconcile`: BatchNorm, the convolutions and the
+norms stay bit-equal over the model ranks), and the checkpoints hold
+the whole tree (gathered on every rank, written by rank 0).
 """
 
 from __future__ import annotations

@@ -20,9 +20,16 @@ Only trainable leaves are optimized: the frozen encoder positional table
 reference, where its gradient is stopped and the decay mask spares it.
 
 Under tensor parallelism (`model_group`, with `axes` the tree of
-`parallel.tensor.Split`s the parameters were cut by) the clip's global
-norm is the whole tree's: the squares of the cut leaves are summed over
-the model group and every whole (replicated) leaf counts once.
+`parallel.tensor.Split`s the parameters were cut by) each model rank
+holds its own copy of every whole (replicated) leaf. Before the clip,
+`step` broadcasts the whole leaves' gradients from the group's first
+rank in one flat bucket (`reconcile`), so the copies, their Adam moments
+and the clip's factor stay bit-equal over the ranks however each rank's
+backward rounded them (cuDNN's default convolution weight gradients sum
+in no fixed order); the reference holds each such leaf as one array.
+The clip's global norm is the whole tree's: the squares of the cut
+leaves are summed over the model group and every whole leaf counts
+once.
 `full_state_dict` and `load_full_state_dict` move the moments as the
 whole tree's, so a checkpoint does not depend on the mesh.
 """
@@ -38,6 +45,7 @@ from audio_transformers_tpu_torch.core.config import OptimizerConfig
 from audio_transformers_tpu_torch.core.params import (FROZEN,
                                                       leaves_with_path)
 from audio_transformers_tpu_torch.parallel import tensor as tp
+from audio_transformers_tpu_torch.parallel.mesh import bucketed
 
 
 def frozen_leaf_decay_mask(params, *, frozen=FROZEN) -> dict:
@@ -146,6 +154,20 @@ class Optimizer:
         return torch.sqrt(whole + cut)
 
     @torch.no_grad()
+    def reconcile(self) -> None:
+        """Under a model group, every whole leaf's gradient becomes the
+        group's first rank's: one broadcast of a flat bucket (cheaper
+        than an all-reduce, and it changes no bit on that rank)."""
+        if self.model_group is None:
+            return
+        grads = [p.grad for p in self.params
+                 if id(p) not in self.splits and p.grad is not None]
+        src = dist.get_global_rank(self.model_group, 0)
+        if grads:
+            bucketed(grads, lambda flat: dist.broadcast(
+                flat, src=src, group=self.model_group))
+
+    @torch.no_grad()
     def _clip(self, max_norm: float) -> None:
         grads = [p.grad for p in self.params if p.grad is not None]
         norm = self.grad_norm()
@@ -153,6 +175,7 @@ class Optimizer:
             g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
 
     def step(self) -> None:
+        self.reconcile()
         if self.cfg.grad_clip_norm:
             self._clip(self.cfg.grad_clip_norm)
         if self.cfg.schedule != "reduce_on_plateau":

@@ -43,8 +43,10 @@ runs the sharded forward, which leaves each rank its vocab shard of the
 logits, and the cross-entropies of the train and eval steps run over the
 shards (`parallel.tensor.vocab_parallel_cross_entropy`: three
 all-reduces of one float a token, no gathered B x T x V logits); the
-gradients are averaged over the data axis only, and the clip's norm is
-the whole tree's. The checkpoints hold
+gradients are averaged over the data axis only, the whole leaves'
+gradients are the model group's first rank's (`optim.Optimizer.
+reconcile`: one broadcast a step), and the clip's norm is the whole
+tree's. The checkpoints hold
 the whole tree (gathered on every rank, written by rank 0), so their
 format and a resume do not depend on the mesh.
 """

@@ -183,12 +183,32 @@ each raising on failure:
      (UrbanSoundConfig() at full width, batch 64 of 4 s clips, dropout
      0.1; float32 and bf16) against one process (float32: loss 1e-6
      relative, gradients 1e-4 * max(1, max |g|); bf16: loss 2e-2
-     relative), its whole leaves bit-equal over the ranks, K3 launched on
-     both; one TP train step (batch 2, float32, flash) through the
+     relative), its whole leaves, their Adam moments and BatchNorm's
+     state bit-equal over the ranks under cuDNN's default algorithms, K3
+     launched on both, a second step's collectives counted and timed;
+     one TP train step (batch 2, float32, flash) through the
      vocab-parallel cross-entropy, its loss within 1e-6 relative of one
      process's and of the route that gathers the logits, its gradients
      within 1e-4 * max(1, max |g|) of both, each route's collectives
-     counted, K3 and K4 launched on both ranks.
+     counted (50 all-reduces and 1 broadcast a step), K3 and K4 launched
+     on both ranks, the whole leaves and their Adam moments bit-equal
+     over the ranks after three steps; for both steps the broadcast of
+     the whole leaves' gradients against an all-reduce of them
+     (`tp_multicard.reconcile_times`), and the step with and without it
+     in turns;
+  31. the greedy decode's routes: `analyze` of the 12 s clip at
+     whisper-tiny width (its transcription and segment decodes), float32
+     and bf16, kv_quant none, int8 and int4,
+     through each DecodeConfig (step_attn, logits_impl) of "fused"
+     (K1, K2) and "xla" (the reference's XLA arithmetic): K1 launched only
+     under step_attn "fused", K2 only under logits_impl "fused", at the
+     counts of fed and generated positions; in float32 with kv_quant none
+     the four routes token-equal; the float32 "xla" decodes held to the
+     same route on the CPU up to `tp_multicard.hold_decode`'s near-tie
+     rule; the decode's ms per step for each combination, in two turns;
+  32. scripts/parity_rehearsal_torch.py at full width on 40 clips for 2
+     epochs (bf16): the training and evaluation kernels launched, the
+     train and val losses falling, the summary and eval files written.
 
 Tolerances (kernel vs plain version, on the card):
   K1 decode_cross_attention: 1e-5 abs in float32 (sum order only);
@@ -272,7 +292,9 @@ rank 0 of phase 30's bf16 decode, phase 29's times at t = 2 and B = 4
 `tp_train`); K1's and K3's entries carry `launches_tp_rank0`; K5's
 `launches_tp_beam` (rank 0's in phase 30's bf16 beams) and `tp_beam`,
 K3's `launches_tp_classifier` (rank 0's in the bf16 TP classifier step)
-and `tp_classifier`.
+and `tp_classifier`; K1's and K2's `launches_routes` (phase 31's launches
+by dtype/kv_quant/step_attn/logits_impl) and `routes_ms_per_step`; every
+entry but K5's and K2's shard mode's `launches_rehearsal` (phase 32).
 The last line is {"ok": true, "device": {...}}. Nothing of JAX is
 imported.
 """
@@ -300,7 +322,7 @@ K4_TOL_F32, K4_ULPS_BF16 = 2e-5, 2
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # traces taken of one profiled function before an empty one fails it
-PROFILE_TRIES = 3
+PROFILE_TRIES = 5
 REPLACES = {
     "decode_cross_attention": "audio_transformers_tpu/ops/decode_attention.py:100",
     "fused_greedy_step": "audio_transformers_tpu/ops/decode_logits.py:82",
@@ -386,12 +408,14 @@ def kernel_events(fn, reps=20):
     the first kernels after the profiler starts go missing now and then:
     19 of 20 one-kernel calls, as `profiled_window` found). A trace that
     holds no kernel, or a count that is no whole multiple of `reps`, is
-    taken again, up to PROFILE_TRIES times, and said so."""
+    taken again, up to PROFILE_TRIES times, and said so; when none is
+    whole, the fullest is returned."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
+    fullest = []
     for attempt in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
@@ -409,16 +433,20 @@ def kernel_events(fn, reps=20):
             return events
         log(f"the profiler's trace {attempt + 1} of {PROFILE_TRIES} holds "
             f"{len(events)} kernels for {reps} calls")
-    return events
+        fullest = max(fullest, events, key=len)
+    return fullest
 
 
 def device_profile(fn, reps=20):
     """(ms, kernels) of one fn(): the summed device time of the kernels it
     launched and their number, from torch.profiler over `reps` calls after
-    a warm-up. Unlike time_ms, it leaves out the host time of a call."""
+    a warm-up. Unlike time_ms, it leaves out the host time of a call.
+    The time is taken over the calls the trace holds: one that lost its
+    first records (`kernel_events`) holds fewer than `reps`."""
     kernels = [us for _, us in kernel_events(fn, reps)]
     require(kernels, "the profiler recorded no kernel")
-    return sum(kernels) / reps / 1e3, len(kernels) / reps
+    calls = len(kernels) / max(1, round(len(kernels) / reps))
+    return sum(kernels) / calls / 1e3, len(kernels) / reps
 
 
 def device_ms(fn, reps=20):
@@ -2227,6 +2255,7 @@ def profiled_window(fn, reps, per_rep):
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
+    fullest = []
     for attempt in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=reps,
@@ -2866,6 +2895,214 @@ def check_tp(torch, smi):
     return got
 
 
+# ---------------------------------------------------------------------------
+# phases 31-32: the decode routes, the rehearsal
+# ---------------------------------------------------------------------------
+
+# (step_attn, logits_impl)
+ROUTE_PAIRS = (("fused", "fused"), ("fused", "xla"), ("xla", "fused"),
+               ("xla", "xla"))
+
+
+class XlaMargins:
+    """Stands in for decode._process_logits in greedy decodes with
+    logits_impl "xla": keeps each generated position's margin, the top-two
+    gap of the processed logits the argmax reads (one (B,) tensor a
+    position, as tp_multicard.MarginSpy keeps K2's), a list a decode."""
+
+    def __init__(self, decode):
+        self.decode, self.fn = decode, decode._process_logits
+        self.margins = []
+
+    def __call__(self, logits, tokens, pos, cfg, dcfg, prompt_len, *args,
+                 **kwargs):
+        out = self.fn(logits, tokens, pos, cfg, dcfg, prompt_len, *args,
+                      **kwargs)
+        if pos == prompt_len:       # a new decode's first token
+            self.margins.append([])
+        top = out.topk(2, dim=-1).values
+        self.margins[-1].append((top[:, 0] - top[:, 1]).float().cpu())
+        return out
+
+    def __enter__(self):
+        self.decode._process_logits = self
+        return self
+
+    def __exit__(self, *exc):
+        self.decode._process_logits = self.fn
+        return False
+
+
+def _route_run(torch, _build, decode, pipe, clip):
+    """One `analyze` of `clip` through `pipe`, which decodes twice (the
+    transcription's window, then the segments' batch): ([{"tokens",
+    "lengths", "hiddens"} of each decode, on the host], the decodes'
+    seconds with the card synchronised around each, the launches)."""
+    def keep(args, kwargs, out):
+        return {k: out[k].float().cpu() if k == "hiddens" else out[k].cpu()
+                for k in ("tokens", "lengths", "hiddens")}
+    torch.cuda.synchronize()
+    _build.reset_stats()
+    with Spy(decode, "generate", keep=keep) as spy:
+        pipe.analyze(clip, 16000)
+    torch.cuda.synchronize()
+    require(spy.calls == 2, f"analyze decoded {spy.calls} times")
+    return spy.kept, spy.seconds, _launches()
+
+
+def check_routes(torch, _build, decode, Pipeline, params, cfg, clip, smi):
+    """Phase 31: `analyze` of the 12 s clip at whisper-tiny width (its two
+    decodes: the transcription, B = 1 and 128 new tokens, and the three
+    segments, B = 4 and 64; penalty 1.15, a 3-gram ban) through each
+    (step_attn, logits_impl) of ROUTE_PAIRS, in float32 and bf16,
+    kv_quant none, int8 and int4, each pipeline warmed up by one call,
+    the four routes run in turns (in order, then reversed): K1's launches
+    4 a fed position under step_attn "fused" and none under "xla" (whose
+    int4 arithmetic is K1's plain version, counted as such), K2's one a
+    generated position under logits_impl "fused" and none under "xla", K3
+    once a decode, no other plain version on CUDA; in float32 with
+    kv_quant none the four routes token-equal; in float32 the ("xla",
+    "xla") decodes on the card held to the same route on the CPU, row by
+    row (`tp_multicard.hold_decode`'s near-tie rule, the CPU run's
+    margins from `XlaMargins`). Each combination's decode ms per step in
+    each turn (its decodes' seconds over their fed positions, by the host
+    clock with the card synchronised around each decode). Returns {"launches": {kernel:
+    {combination: launches}}, "ms": {...}, "holds": {...}}."""
+    from audio_transformers_tpu_torch.core.config import DecodeConfig
+    scripts = os.path.join(HERE, "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import tp_multicard as tpm
+    w = cfg.whisper
+    p_len = len(decode.build_prompt(w, DecodeConfig()))
+    runs, ms = {}, {}
+    launches = {"decode_cross_attention": {}, "fused_greedy_step": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        for quant in ("none", "int8", "int4"):
+            pipe = Pipeline(params, cfg, device="cuda", compute_dtype=dtype,
+                            kv_quant=quant)
+            pipe.analyze(clip, 16000)
+            for sa, li in ROUTE_PAIRS + ROUTE_PAIRS[::-1]:
+                pipe.step_attn, pipe.logits_impl = sa, li
+                key = f"{str(dtype)[6:]}/{quant}/{sa}/{li}"
+                outs, secs, stats = _route_run(torch, _build, decode, pipe,
+                                               clip)
+                steps = sum(int(o["lengths"].max()) for o in outs)
+                ms.setdefault(key, []).append(1e3 * secs / steps)
+                k1, k1_plain = stats["decode_cross_attention"]
+                k2 = stats["fused_greedy_step"][0]
+                launches["decode_cross_attention"][key] = k1
+                launches["fused_greedy_step"][key] = k2
+                require(k1 == (w.decoder_layers * steps if sa == "fused"
+                               else 0), f"phase 31 {key}: K1 launches {k1} "
+                        f"for {steps} fed positions")
+                require(k2 == (steps - len(outs) * p_len if li == "fused"
+                               else 0),
+                        f"phase 31 {key}: K2 launches {k2} for {steps} "
+                        f"fed positions")
+                require(k1_plain == (w.decoder_layers * steps
+                                     if (sa, quant) == ("xla", "int4")
+                                     else 0),
+                        f"phase 31 {key}: K1's plain version ran "
+                        f"{k1_plain} times")
+                require(stats["log_mel"] == (2, 0)
+                        and all(plain == 0 for name, (_, plain)
+                                in stats.items()
+                                if name != "decode_cross_attention"),
+                        f"phase 31 {key}: launches {stats}")
+                runs[key] = outs
+            del pipe
+            torch.cuda.empty_cache()
+
+    def same(a, b):
+        return all(torch.equal(x["tokens"], y["tokens"])
+                   for x, y in zip(runs[a], runs[b]))
+    for sa, li in ROUTE_PAIRS:
+        require(same(f"float32/none/{sa}/{li}", "float32/none/fused/fused"),
+                f"phase 31: float32 kv_quant none, {sa}/{li} tokens differ "
+                f"from fused/fused")
+    emb_norm = float(params["whisper"]["decoder"]["embed"]["table"].float()
+                     .norm(dim=1).max())
+    holds = {}
+    for quant in ("none", "int8", "int4"):
+        cpu = Pipeline(params, cfg, device="cpu",
+                       compute_dtype=torch.float32, kv_quant=quant,
+                       step_attn="xla", logits_impl="xla")
+        with XlaMargins(decode) as margins:
+            refs, _, _ = _route_run(torch, _build, decode, cpu, clip)
+        for i, (ref, card, m) in enumerate(zip(
+                refs, runs[f"float32/{quant}/xla/xla"], margins.margins)):
+            rows = [{"mesh": (len(ref["tokens"]), b, 1, 0),
+                     "tokens": card["tokens"][b:b + 1],
+                     "hiddens": card["hiddens"][b:b + 1]}
+                    for b in range(len(ref["tokens"]))]
+            try:
+                holds[f"{quant}/{i}"] = tpm.hold_decode(
+                    {"tokens": ref["tokens"], "hiddens": ref["hiddens"],
+                     "margins": m, "prompt_len": p_len,
+                     "emb_norm": emb_norm}, rows, "float32",
+                    near_ties=True)
+            except AssertionError as e:
+                require(False, f"phase 31 float32 {quant} xla/xla decode "
+                        f"{i}, card against CPU: {e}")
+    equal = {key: same(key, "/".join(key.split("/")[:2]) + "/fused/fused")
+             for key in runs}
+    log(f"decode routes ({smi}; whisper-tiny, analyze of a 12 s clip, "
+        f"dtype/kv_quant/step_attn/logits_impl): ms per step "
+        f"{json.dumps(ms)}; tokens equal to fused/fused {json.dumps(equal)};"
+        f" float32 xla/xla card against CPU by decode/row "
+        f"{json.dumps(holds)}")
+    return {"launches": launches, "ms": ms, "holds": holds}
+
+
+def check_rehearsal(torch, _build, smi):
+    """Phase 32: scripts/parity_rehearsal_torch.py's `main` at full width
+    (whisper-tiny, bf16) on 40 SyntheticExpresso clips (24/9/7), 2 epochs
+    of batch 5, then the sequence-level evaluation: the training and
+    evaluation kernels launched, no plain version on CUDA, the train and
+    val losses lower in the second epoch than in the first, a summary
+    over the 7 test clips. Returns its numbers."""
+    scripts = os.path.join(HERE, "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import parity_rehearsal_torch as rehearsal
+    out = tempfile.mkdtemp(prefix="chip_smoke_rehearsal_")
+    try:
+        torch.cuda.synchronize()
+        _build.reset_stats()
+        t0 = time.perf_counter()
+        summary = rehearsal.main(["--num_samples", "40", "--epochs", "2",
+                                  "--output_dir", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = _launches()
+        written = sorted(os.listdir(out))
+        evaluated = sorted(os.listdir(os.path.join(out, "eval_out")))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    _require_launched(stats, TRAINING + ("decode_cross_attention",
+                                         "fused_greedy_step"), "phase 32")
+    curve = summary["loss_curve"]
+    require(len(curve) == 2
+            and curve[1]["train_loss"] < curve[0]["train_loss"]
+            and curve[1]["val_loss"] < curve[0]["val_loss"],
+            f"phase 32: the loss falls over two epochs: {curve}")
+    require(summary["test_samples"] == 7
+            and math.isfinite(summary["best_val_loss"])
+            and 0.0 <= summary["test_accuracy"] <= 1.0,
+            f"phase 32: summary {summary}")
+    require({"metrics.jsonl", "rehearsal_summary.json", "style_to_id.txt",
+             "eval_out"} <= set(written)
+            and evaluated == ["metrics.txt", "predictions.txt"],
+            f"phase 32: wrote {written}, eval_out {evaluated}")
+    log(f"rehearsal at full width ({smi}; 40 clips, 2 epochs, batch 5, "
+        f"bf16): {wall:.1f} s; loss curve {json.dumps(curve)}; test "
+        f"accuracy {summary['test_accuracy']} on "
+        f"{summary['test_samples']} clips; launches {stats}")
+    return {"launches": {k: v[0] for k, v in stats.items()},
+            "wall_s": wall, "loss_curve": curve}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3097,6 +3334,18 @@ def main() -> int:
     tp_decodes, tp_train = tp_run["decode"], tp_run["train"]
     log(f"phases 29-30: {time.perf_counter() - t0:.1f} s")
 
+    # 31. the greedy decode's routes, step_attn x logits_impl
+    t0 = time.perf_counter()
+    params = init(cfg, torch.Generator().manual_seed(0))
+    routes = check_routes(torch, _build, decode, EmotionWhisperPipeline,
+                          params, cfg, clip, smi[0])
+    del params
+    torch.cuda.empty_cache()
+
+    # 32. the Expresso rehearsal through the port, short
+    rehearsal = check_rehearsal(torch, _build, smi[0])
+    log(f"phases 31-32: {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     for name in SERVING:
         t4, t16 = times[4][name], times[16][name]
@@ -3126,6 +3375,12 @@ def main() -> int:
             entry["tp_classifier"] = tp_run["classifier"]
             # data parallelism: phase 26's DP runs, phase 27's ranks
             entry.update(dp)
+        if name in routes["launches"]:
+            # phase 31: launches by dtype/kv_quant/step_attn/logits_impl,
+            # and each combination's decode ms per step
+            entry["launches_routes"] = routes["launches"][name]
+            entry["routes_ms_per_step"] = routes["ms"]
+        entry["launches_rehearsal"] = rehearsal["launches"][name]
         if name == "decode_cross_attention":
             entry["max_abs_err"] = max(err[name], err_int4)
             entry["max_abs_err_int4"] = err_int4
@@ -3134,7 +3389,8 @@ def main() -> int:
         kernels.append(entry)
     for name in TRAINING[1:]:
         # phase 25: launches per step with remat, and its memory and time
-        remat_fields = {"launches_remat": remat_launches[name]}
+        remat_fields = {"launches_remat": remat_launches[name],
+                        "launches_rehearsal": rehearsal["launches"][name]}
         if name == "flash_attention_fwd":
             remat_fields.update(remat)
         kernels.append({"name": name, "route": "cuda",

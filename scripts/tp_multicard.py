@@ -37,15 +37,23 @@
    rank 0's gradients to one card's step on the same batch, each route's
    collectives counted; then a second step with its collectives counted
    and timed as above, and a third for ms per step on the mesh and on
-   one card.
+   one card; every whole leaf and its Adam moments bit-equal over the
+   model ranks after the three steps, under cuDNN's default algorithms
+   (`Optimizer.reconcile` broadcasts the whole leaves' gradients from
+   the group's first rank); then `reconcile_times`, and four more steps
+   timed in turns with the reconcile on and off (`reconcile_turns`).
 4. one TP classifier train step (UrbanSoundConfig() at full width,
    batch 64 of 4 s clips, dropout 0.1; bf16 and float32) on `model:4`
    and `data:2 x model:2` (on `model:2` in chip_smoke): held to one
    card's step (float32: loss within 1e-6 relative, gradients within
    1e-4 * max(1, max |g|); bf16: loss within 2e-2 relative, the
-   gradients' error printed), every whole leaf bit-equal over the model
-   ranks (cuDNN deterministic for the step: its default convolution
-   weight gradients sum in no fixed order), K3 launched on every rank.
+   gradients' error printed), every whole leaf, its Adam moments and
+   BatchNorm's state bit-equal over the model ranks under cuDNN's
+   default algorithms (whose convolution weight gradients sum in no
+   fixed order: `Optimizer.reconcile` makes the ranks' whole gradients
+   the first rank's), K3 launched on every rank; on a model axis, a
+   second step with its collectives counted and timed, then
+   `reconcile_times` and `reconcile_turns` as for the train step.
 
 Each mesh runs in N processes over NCCL, process r on card r
 (`parallel.launch`). With --device cpu the same runs in gloo processes on
@@ -164,10 +172,11 @@ def _sync(device):
 @contextmanager
 def counted_collectives(device, timed: bool):
     """Counts (and with `timed`, times by the host clock with the card
-    synchronised before and after) every all_reduce and all_gather the
-    block makes; yields the {"all_reduce": [n, s], "all_gather": [n, s]}
-    it fills."""
-    rec = {"all_reduce": [0, 0.0], "all_gather": [0, 0.0]}
+    synchronised before and after) every all_reduce, all_gather and
+    broadcast the block makes; yields the {"all_reduce": [n, s],
+    "all_gather": [n, s], "broadcast": [n, s]} it fills."""
+    rec = {"all_reduce": [0, 0.0], "all_gather": [0, 0.0],
+           "broadcast": [0, 0.0]}
     saved = {name: getattr(dist, name) for name in rec}
 
     def wrap(name):
@@ -189,6 +198,83 @@ def counted_collectives(device, timed: bool):
     finally:
         for name, fn in saved.items():
             setattr(dist, name, fn)
+
+
+def whole_state(params, axes, opt, state=None) -> dict:
+    """This rank's copy of every whole (replicated) leaf, its Adam
+    moments, and `state` (BatchNorm's), on the host, by key."""
+    out = {}
+    splits = (tp.split_leaves(axes) if axes is not None
+              else [None] * len(cp.leaves_with_path(params)))
+    for (path, t), sp in zip(cp.leaves_with_path(params), splits):
+        if sp is None:
+            out[("leaf",) + path] = t.detach().cpu()
+            for k, v in opt.opt.state.get(t, {}).items():
+                out[(k,) + path] = v.cpu()
+    for path, t in cp.leaves_with_path(state or {}):
+        out[("state",) + path] = t.cpu()
+    return out
+
+
+def hold_whole_state(ranks: list, key: str, what: str) -> None:
+    """Every rank's `whole_state` (under `key`) equal to its data group's
+    model rank 0's, bit for bit."""
+    for r in ranks:
+        peer = ranks[r["mesh"][1] * r["mesh"][2]]
+        for k, t in r[key].items():
+            if not torch.equal(t, peer[key][k]):
+                raise AssertionError(f"{what}: whole {k} differs over the "
+                                     f"model ranks")
+
+
+def reconcile_times(opt, device, reps: int = 20) -> dict:
+    """The two ways to make the whole leaves' gradients equal over the
+    model group, each run `reps` times in turns (broadcast, all-reduce,
+    all-reduce, broadcast) on a flat bucket of their size, the card
+    synchronised around each run: one broadcast from the group's first
+    rank (`Optimizer.reconcile`'s) and one all-reduce with a divide by
+    the group's size. ms per call by the host clock, and the floats."""
+    group = opt.model_group
+    flat = torch.cat([p.grad.reshape(-1) for p in opt.params
+                      if id(p) not in opt.splits and p.grad is not None])
+    src = dist.get_global_rank(group, 0)
+    t = tp.model_size(group)
+
+    def broadcast():
+        dist.broadcast(flat, src=src, group=group)
+
+    def all_reduce():
+        dist.all_reduce(flat, group=group)
+        flat.div_(t)
+    times = {"broadcast": [], "all_reduce": []}
+    for name in ("broadcast", "all_reduce", "all_reduce", "broadcast"):
+        fn = broadcast if name == "broadcast" else all_reduce
+        fn()
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        _sync(device)
+        times[name].append(1e3 * (time.perf_counter() - t0) / reps)
+    return {"floats": flat.numel(), "ms": times}
+
+
+def reconcile_turns(step, opt, device) -> dict:
+    """ms of `step()` (the card synchronised around it) with the
+    reconcile on and off, in turns (on, off, off, on, twice)."""
+    times = {"on": [], "off": []}
+    for turn in ("on", "off", "off", "on") * 2:
+        if turn == "off":
+            opt.reconcile = lambda: None
+        try:
+            _sync(device)
+            t0 = time.perf_counter()
+            step()
+            _sync(device)
+        finally:
+            opt.__dict__.pop("reconcile", None)
+        times[turn].append(1e3 * (time.perf_counter() - t0))
+    return times
 
 
 def _k1_rows(b, heads, dev, dtype) -> float:
@@ -354,13 +440,15 @@ def one_card_decode(size: str, dtype: str, n_clips: int, device: str,
             "prompt_len": len(wdecode.build_prompt(cfg, DCFG))}
 
 
-def hold_decode(one: dict, ranks: list, dtype: str) -> dict:
+def hold_decode(one: dict, ranks: list, dtype: str,
+                near_ties: bool = None) -> dict:
     """Holds each rank's tokens to one card's decode of its clip: float32
-    token for token; bf16 token for token up to the first position where
-    they differ, where the one-card margin must lie under 2 * penalty *
-    |dh| * max|e_v| + MARGIN_SLACK (dh: the two runs' final hidden states
-    at the position before, where the inputs were still the same). The
-    model ranks of a data rank must hold the same tokens. Returns
+    token for token; bf16 (or with `near_ties`) token for token up to the
+    first position where they differ, where the one-card margin must lie
+    under 2 * penalty * |dh| * max|e_v| + MARGIN_SLACK (dh: the two runs'
+    final hidden states at the position before, where the inputs were
+    still the same). The model ranks of a data rank must hold the same
+    tokens. Returns
     {"rows_equal", "first_divergence", "bound_at_divergence",
     "margin_at_divergence"} per data row."""
     p_len = one["prompt_len"]
@@ -377,7 +465,7 @@ def hold_decode(one: dict, ranks: list, dtype: str) -> dict:
         row = {"rows_equal": not len(diff)}
         if len(diff):
             pos = int(diff[0])
-            if dtype == "float32":
+            if not (dtype != "float32" if near_ties is None else near_ties):
                 raise AssertionError(f"float32 TP decode differs from one "
                                      f"card at position {pos}")
             dh = float((r["hiddens"][0, pos - 1]
@@ -709,25 +797,27 @@ def classifier_step(mesh: Mesh, dtype: str, device) -> dict:
     gen = common.rank_generator(
         torch.Generator(device=dev).manual_seed(24), mesh)
     _build.reset_stats()
-    # cuDNN's default weight-gradient algorithms for the convolutions sum
-    # in no fixed order, so the ranks' replicated leaves would differ by
-    # rounding; the deterministic ones let the check ask for equal bits
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        _, m = step(params, state, batch, gen)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
+    state, m = step(params, state, batch, gen)
     grads = cp.map_tensors(params, lambda t: t.grad)
-    splits = (tp.split_leaves(axes) if axes is not None
-              else [None] * len(cp.leaves_with_path(params)))
-    return {"loss": common.mean_over_ranks(m, mesh)["loss"],
-            "grads": {p: g.float().cpu() for p, g in cp.leaves_with_path(
-                tp.gather_params(grads, group, axes) if axes else grads)},
-            "whole_leaves": {p: t.detach().cpu() for (p, t), sp in zip(
-                cp.leaves_with_path(params), splits) if sp is None},
-            "k3": (_build.STATS["log_mel"].launches,
-                   _build.STATS["log_mel"].plain_cuda_calls)}
+    res = {"loss": common.mean_over_ranks(m, mesh)["loss"],
+           "grads": {p: g.float().cpu() for p, g in cp.leaves_with_path(
+               tp.gather_params(grads, group, axes) if axes else grads)},
+           "whole_state": whole_state(params, axes, opt, state),
+           "k3": (_build.STATS["log_mel"].launches,
+                  _build.STATS["log_mel"].plain_cuda_calls)}
+    if group is not None:
+        # a second step, its collectives counted and timed (the card
+        # synchronised around each), then the reconcile's cost
+        with counted_collectives(dev, timed=True) as rec:
+            t0 = time.perf_counter()
+            state, _ = step(params, state, batch, gen)
+            _sync(dev)
+            res["timed_wall_s"] = time.perf_counter() - t0
+        res["collectives"] = rec
+        res["reconcile_ms"] = reconcile_times(opt, dev)
+        res["step_ms"] = reconcile_turns(
+            lambda: step(params, state, batch, gen), opt, dev)
+    return res
 
 
 def classifier_rank(out_dir, mesh, mesh_name, dtype, device) -> None:
@@ -754,18 +844,22 @@ def _hold_classifier(out_dir, mesh_name, dtype, device, n) -> dict:
     if dtype == "float32" and g_ratio > 1.0:
         raise AssertionError(f"{mesh_name} classifier: gradients at "
                              f"{g_ratio:.3g} of 1e-4 max(1, |g|)")
+    hold_whole_state(ranks, "whole_state", f"{mesh_name} classifier")
     for r in ranks:
-        peer = ranks[r["mesh"][1] * r["mesh"][2]]
-        for p, t in r["whole_leaves"].items():
-            if not torch.equal(t, peer["whole_leaves"][p]):
-                raise AssertionError(f"{mesh_name} classifier: whole leaf "
-                                     f"{p} differs over the model ranks")
         if str(device).startswith("cuda") and (r["k3"][0] == 0 or r["k3"][1]):
             raise AssertionError(f"{mesh_name} classifier: K3 {r['k3']}")
-    return {"mesh": mesh_name, "dtype": dtype, "loss": ranks[0]["loss"],
+    r0 = ranks[0]
+    return {"mesh": mesh_name, "dtype": dtype, "loss": r0["loss"],
             "one_card_loss": one["loss"], "loss_rel": rel,
             "grad_share_of_tol": g_ratio,
-            "k3_launches_rank0": ranks[0]["k3"][0]}
+            "k3_launches_rank0": r0["k3"][0],
+            "collectives_per_step": {k: v[0] for k, v in
+                                     r0["collectives"].items()},
+            "collective_ms_per_step": 1e3 * sum(
+                v[1] for v in r0["collectives"].values()),
+            "timed_step_ms": 1e3 * r0["timed_wall_s"],
+            "step_ms_reconcile_on_off": r0["step_ms"],
+            "reconcile_ms": r0["reconcile_ms"]}
 
 
 def _hold_beams(out_dir, mesh_name, size, dtype, device, n, timed) -> dict:
@@ -899,6 +993,13 @@ def train_rank(out_dir: str, mesh: Mesh, mesh_name: str,
     step(params, batch)
     _sync(dev)
     res.update(wall_s=time.perf_counter() - t0, collectives=rec)
+    if mesh.model_group is not None:
+        res["mesh"] = (mesh.size, mesh.rank, mesh.model_size,
+                       mesh.model_rank)
+        res["whole_state"] = whole_state(params, axes, opt)
+        res["reconcile_ms"] = reconcile_times(opt, dev)
+        res["step_ms"] = reconcile_turns(lambda: step(params, batch), opt,
+                                         dev)
     torch.save(res, os.path.join(
         out_dir, f"train_{mesh_name}_rank{distributed.process_index()}.pt"))
 
@@ -988,6 +1089,7 @@ def _hold_train(out_dir, mesh_name, device, n) -> dict:
     if g_ratio > 1.0 or max(r["route_grad_ratio"] for r in ranks) > 1.0:
         raise AssertionError(f"{mesh_name}: TP step gradients at {g_ratio:.3g}"
                              f" of 1e-4 max(1, |g|) against one card's")
+    hold_whole_state(ranks, "whole_state", f"{mesh_name} train step")
     if str(device).startswith("cuda"):
         for r in ranks:
             for k in ("log_mel", "flash_attention_fwd",
@@ -1009,7 +1111,9 @@ def _hold_train(out_dir, mesh_name, device, n) -> dict:
             "collective_ms_per_step": 1e3 * sum(
                 v[1] for v in r0["collectives"].values()),
             "collective_share": sum(v[1] for v in r0["collectives"].values())
-            / r0["timed_wall_s"]}
+            / r0["timed_wall_s"],
+            "step_ms_reconcile_on_off": r0["step_ms"],
+            "reconcile_ms": r0["reconcile_ms"]}
 
 
 def main(argv=None) -> int:

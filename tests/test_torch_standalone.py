@@ -59,6 +59,8 @@ new = {"audio_transformers_tpu_torch." + m for m in (
 assert new <= set(names), sorted(new - set(names))
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")
 runpy.run_path("tests/test_torch_cuda.py", run_name="test_torch_cuda")
+for script in ("parity_rehearsal_torch", "tp_multicard"):
+    runpy.run_path(f"scripts/{script}.py", run_name=script)
 leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and m.split(".")[0] in blocked_names)
 assert not leaked, leaked

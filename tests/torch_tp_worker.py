@@ -13,7 +13,8 @@ computed:
              "greedy" (penalty 1.15, 3-gram ban), "ts" (the same,
              timestamped), "int4" (timestamped, int4 cross K/V) and
              "fallback" (timestamped, every row re-decoded at temperature
-             0.7), each beside this process's one-process decode of the
+             0.7) and "xla" (int8 cross K/V, step_attn and logits_impl
+             "xla"), each beside this process's one-process decode of the
              same rows ("<case>_one"); and `generate_beam`'s outputs
              (3 beams, the same processors) for "beam" (kv_quant none),
              "beam_int8", "beam_ts" (timestamped) and "beam_int4"
@@ -32,6 +33,14 @@ computed:
              whisper case, grad clip 0.5): the mean loss over the ranks,
              the clip's norm, the gathered gradients and updated
              parameters, and this rank's copy of every whole leaf
+  drift      on a model axis, two TP train steps of each trainer
+             (whisper's dual loss, grad clip 0.5; the classifier with
+             dropout) with a hook on model rank 1 that moves a whole
+             leaf's gradient (the first convolution's weight) one ulp up,
+             standing in for cuDNN's unordered weight gradients on the
+             card: this rank's copy of every whole leaf, their Adam
+             moments, the classifier's BatchNorm state, and the hook's
+             call count
   trainers   one epoch of `train_whisper_emotion` (writing under
              <out_dir>/<mesh>/whisper), a second run there to 2 epochs
              (resuming from the first's checkpoint), one epoch of
@@ -95,6 +104,9 @@ DECODES = {
                          kv_quant="int4", **CHAIN),
     "fallback": DecodeConfig(max_new_tokens=10, return_timestamps=True,
                              compression_ratio_threshold=1e-6, **CHAIN),
+    # the reference's XLA arithmetic (int8 quantizes q and p) and logits
+    "xla": DecodeConfig(max_new_tokens=10, kv_quant="int8", step_attn="xla",
+                        logits_impl="xla", **CHAIN),
 }
 BEAMS = {
     "beam": DecodeConfig(max_new_tokens=10, num_beams=3, **CHAIN),
@@ -282,6 +294,80 @@ def train_step(mesh) -> dict:
                              if s is None}}
 
 
+def _one_ulp(mesh, leaf: torch.Tensor) -> list:
+    """On model rank 1, a hook that moves every element of `leaf`'s
+    gradient one ulp up; returns the list the hook appends a 1 to at each
+    call."""
+    calls = []
+
+    def up(g):
+        calls.append(1)
+        return torch.nextafter(g, torch.full_like(g, float("inf")))
+    if mesh.model_rank == 1:
+        leaf.register_hook(up)
+    return calls
+
+
+def _whole_state(params, axes, opt, state=None) -> dict:
+    """Every whole leaf, its Adam moments, and `state`, by key."""
+    out = {}
+    for (path, t), s in zip(cp.leaves_with_path(params),
+                            tp.split_leaves(axes)):
+        if s is None:
+            out[("leaf",) + path] = t.detach().clone()
+            for k, v in opt.opt.state.get(t, {}).items():
+                out[(k,) + path] = v.clone()
+    for path, t in cp.leaves_with_path(state or {}):
+        out[("state",) + path] = t.clone()
+    return out
+
+
+def drift(mesh) -> dict:
+    """Two TP steps of each trainer with `_one_ulp` on the first
+    convolution's weight (see the module note)."""
+    out = {}
+    full = cp.init(dpw.WHISPER, torch.Generator().manual_seed(0))
+    axes = emo.param_axes(full, dpw.WHISPER, mesh.model_size)
+    params = cp.set_trainable(tp.shard_params(full, mesh.model_size,
+                                              mesh.model_rank, axes))
+    tcfg = dpw.wh_tcfg()
+    tcfg = tcfg.replace(optimizer=tcfg.optimizer.replace(
+        grad_clip_norm=CLIP))
+    opt = optim.build_optimizer(tcfg.optimizer, params,
+                                decay_mask=optim.frozen_leaf_decay_mask,
+                                model_group=mesh.model_group, axes=axes)
+    calls = _one_ulp(mesh, params["whisper"]["encoder"]["conv1"]["w"])
+    step, _ = tw.make_steps(dpw.WHISPER, dpw.MEL_WH, tcfg, opt, "cpu", mesh)
+    batches = Batcher(dpw.RaggedLabels(2 * dpw.WH_BATCH, 1),
+                      2 * dpw.WH_BATCH, dpw.WH_BATCH).train_epochs(epoch=0)
+    for host in batches:
+        step(params, common.batch_to_device(host, "cpu"))
+    out["whisper"] = _whole_state(params, axes, opt)
+    out["whisper_calls"] = len(calls)
+
+    cfg = dpw.CLS
+    params, state = us.init(cfg, torch.Generator().manual_seed(1))
+    axes = us.param_axes(params, cfg, mesh.model_size)
+    params = cp.set_trainable(
+        tp.shard_params(params, mesh.model_size, mesh.model_rank, axes),
+        frozen=())
+    tcfg = dpw.cls_tcfg()
+    opt = optim.build_optimizer(tcfg.optimizer, params,
+                                model_group=mesh.model_group, axes=axes)
+    calls = _one_ulp(mesh, params["conv1"]["w"])
+    step, _ = tc.make_steps(cfg, dpw.MEL_CLS, tcfg, opt, mesh,
+                            tensor_parallel=True)
+    gen = common.rank_generator(torch.Generator().manual_seed(3), mesh)
+    batches = Batcher(dpw.cls_source(2 * dpw.CLS_BATCH),
+                      2 * dpw.CLS_BATCH, dpw.CLS_BATCH).train_epochs(epoch=0)
+    for host in batches:
+        state, _ = step(params, state, common.batch_to_device(host, "cpu"),
+                        gen)
+    out["classifier"] = _whole_state(params, axes, opt, state)
+    out["classifier_calls"] = len(calls)
+    return out
+
+
 def trainers(mesh_shape, out_dir) -> dict:
     wh = tw.train_whisper_emotion(
         dpw.WHISPER, dpw.MEL_WH, dpw.wh_tcfg(mesh_shape=mesh_shape),
@@ -339,7 +425,8 @@ def run(out_dir: str, mesh_name: str) -> None:
            "decode": decodes(whole, shards, mesh, rows),
            "ce": ce_routes(shards, axes, mesh, rows),
            "classifier": classifier(mesh),
-           "step": train_step(mesh)}
+           "step": train_step(mesh),
+           "drift": drift(mesh) if mesh.model_group is not None else None}
     out["trainers"] = trainers(MESHES[mesh_name],
                                os.path.join(out_dir, mesh_name))
     rank = distributed.process_index()
