@@ -1,0 +1,13 @@
+"""The share of the traced block's host-clock time in which no device
+operation ran."""
+
+from benchmark.harness import readers
+
+NAME = "idle_share.large"
+UNIT = "%"
+LAYER = "device"
+MOVES = "train_clips_per_s.large"
+
+
+def read(ctx):
+    return readers.idle_share(ctx)

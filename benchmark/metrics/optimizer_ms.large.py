@@ -1,0 +1,13 @@
+"""Device time of one AdamW step (the benchmark's optimizer object's
+`step`), CUDA events around each call, mean over the window's steps."""
+
+from benchmark.harness import readers
+
+NAME = "optimizer_ms.large"
+UNIT = "ms"
+LAYER = "optimizer (train/optim.Optimizer.step)"
+MOVES = "train_clips_per_s.large"
+
+
+def read(ctx):
+    return readers.mean(ctx.spans.cuda_ms("optimizer.step", ctx.cell.t0_ns))
