@@ -23,6 +23,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from audio_transformers_tpu_torch.core import tracing
 from audio_transformers_tpu_torch.core.checkpoint import (Checkpointer,
                                                           load_label_map)
 from audio_transformers_tpu_torch.core.config import (DecodeConfig,
@@ -180,7 +181,8 @@ class EmotionWhisperPipeline:
         w = self.cfg.whisper
         prompt = wdecode.build_prompt(w, dcfg)
         wav = torch.from_numpy(np.ascontiguousarray(windows)).to(self.device)
-        mel = log_mel(wav, self.mel_cfg).to(self.compute_dtype)
+        with tracing.span("log_mel"):
+            mel = log_mel(wav, self.mel_cfg).to(self.compute_dtype)
         enc = wm.encode(self.params["whisper"], w, mel)
         if dcfg.num_beams > 1:
             # deterministic, so the compression-ratio fallback (a rescue of
@@ -204,6 +206,7 @@ class EmotionWhisperPipeline:
         ids = [int(t) for t in tokens[start:length]]
         return self.tokenizer.decode(ids, skip_special=True).strip()
 
+    @tracing.spanned("pipeline.analyze_windows")
     def analyze_windows(self, windows: np.ndarray, *,
                         max_new_tokens: int = 64, max_batch: int = 16):
         """Decode + emotion for built model windows, (n, window) float32 ->
@@ -225,6 +228,8 @@ class EmotionWhisperPipeline:
             idxs = list(range(start, min(start + bucket, n)))
             group = np.zeros((bucket, self._window), np.float32)
             group[: len(idxs)] = windows[idxs[0]: idxs[-1] + 1]
+            tracing.count("pipeline.rows", len(idxs))
+            tracing.count("pipeline.padded_rows", bucket - len(idxs))
             out = self._decode(group, dcfg)
             # unmasked mean over all L positions, as the head is trained
             probs = out["probs"].cpu().numpy().astype(np.float32)

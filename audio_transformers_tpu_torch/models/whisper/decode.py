@@ -35,6 +35,15 @@ logits, and so sampling, gather the rank's logits to the whole vocab
 (`gather_vocab`); sampling draws the same noise on every rank (the
 generator seeded alike). So every rank holds the same tokens and
 `finished` flags, and leaves the loop at the same step.
+
+With the recorder on (`core/tracing.py`), a greedy call is a
+`decode.generate` span around `cross_kv`, `decode.prepare` (the
+step-ready weights, padded table and masks; CUDA events on the card) and
+one `decode.step` per loop iteration, which holds `decode.blocks` (the
+decoder step), `decode.logits` (the token: K2 or the logits and
+processors, the n-gram ban, the seen marks) and `decode.sync` (the loop's
+one device read, the `finished` test). The counter `decode.steps` counts
+the decoder steps, the final feed included.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from audio_transformers_tpu_torch.core import tracing
 from audio_transformers_tpu_torch.core.config import (DecodeConfig,
                                                       WhisperConfig)
 from audio_transformers_tpu_torch.models.whisper import model as wm
@@ -167,6 +177,7 @@ def gumbel_noise(shape: Tuple[int, ...],
 
 
 @torch.no_grad()
+@tracing.spanned("decode.generate")
 def generate(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
              enc: torch.Tensor, *,
              prompt: Optional[Tuple[int, ...]] = None,
@@ -214,61 +225,60 @@ def generate(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
                           device=dev, quant=self_quant, model_size=t_size)
     cross = wm.precompute_cross_attention(params, cfg, enc,
                                           quant=dcfg.kv_quant)
-    step_params = wm.prepare_decode_params(params, cfg, dtype=enc.dtype)
+    with tracing.span("decode.prepare", device=dev):
+        step_params = wm.prepare_decode_params(params, cfg, dtype=enc.dtype)
+        # the rank's columns [v0, v0 + width) of the padded vocab
+        v0, v1, width = tp.vocab_shard(cfg.vocab_size, t_size,
+                                       tp.model_rank(model_group))
+        if fused:
+            # the fused step's padded operands, built once outside the
+            # loop: the rank's columns of the padded table, bias and masks
+            v_pad = dl.pad_vocab(cfg.vocab_size)
+            table_t = torch.zeros((cfg.d_model, width), dtype=enc.dtype,
+                                  device=dev)
+            table_t[:, :v1 - v0] = step_params["embed"]["table"].t()
+            # the timestamp rules' one position-independent mask:
+            # <|notimestamps|> is always suppressed
+            static_ids = tuple(suppress_ids) + (
+                (cfg.no_timestamps_token_id,) if dcfg.return_timestamps
+                else ())
+            add_base = lp.suppress_vector(
+                v_pad, static_ids, vocab=cfg.vocab_size,
+                device=dev)[v0:v0 + width].clone()
+            add_begin = lp.suppress_vector(
+                v_pad, static_ids + tuple(begin_suppress_ids),
+                vocab=cfg.vocab_size, device=dev)[v0:v0 + width].clone()
+            ts_begin = (cfg.timestamp_begin_id if dcfg.return_timestamps
+                        else None)
+        else:
+            # compute-dtype values
+            table = step_params["embed"]["table"].float()
+            masks = suppress_masks(cfg.vocab_size, suppress_ids,
+                                   begin_suppress_ids, dev)
+        if sampling and generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        # seen-token mask for the repetition penalty: seeded with position
+        # 0 and extended by every token written (prompt-forced and post-EOS
+        # pads included), so it always marks exactly the ids in
+        # tokens[:, :pos]
+        track_seen = dcfg.repetition_penalty != 1.0
+        rows = torch.arange(batch, device=dev)
+        seen = None
+        if track_seen:
+            seen = torch.zeros((batch, width), dtype=torch.int8, device=dev)
+            _mark_seen(seen, rows, tokens[:, 0], v0, model_group)
+        n = dcfg.no_repeat_ngram_size
+        use_ban = bool(n) and length >= n
+        finished = torch.zeros(batch, dtype=torch.bool, device=dev)
 
-    # the rank's columns [v0, v0 + width) of the padded vocab
-    v0, v1, width = tp.vocab_shard(cfg.vocab_size, t_size,
-                                   tp.model_rank(model_group))
-    if fused:
-        # the fused step's padded operands, built once outside the loop:
-        # the rank's columns of the padded table, bias and masks
-        v_pad = dl.pad_vocab(cfg.vocab_size)
-        table_t = torch.zeros((cfg.d_model, width), dtype=enc.dtype,
-                              device=dev)
-        table_t[:, :v1 - v0] = step_params["embed"]["table"].t()
-        # the timestamp rules' one position-independent mask:
-        # <|notimestamps|> is always suppressed
-        static_ids = tuple(suppress_ids) + (
-            (cfg.no_timestamps_token_id,) if dcfg.return_timestamps else ())
-        add_base = lp.suppress_vector(
-            v_pad, static_ids, vocab=cfg.vocab_size,
-            device=dev)[v0:v0 + width].clone()
-        add_begin = lp.suppress_vector(
-            v_pad, static_ids + tuple(begin_suppress_ids),
-            vocab=cfg.vocab_size, device=dev)[v0:v0 + width].clone()
-        ts_begin = cfg.timestamp_begin_id if dcfg.return_timestamps else None
-    else:
-        table = step_params["embed"]["table"].float()   # compute-dtype values
-        masks = suppress_masks(cfg.vocab_size, suppress_ids,
-                               begin_suppress_ids, dev)
-    if sampling and generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    # seen-token mask for the repetition penalty: seeded with position 0
-    # and extended by every token written (prompt-forced and post-EOS pads
-    # included), so it always marks exactly the ids in tokens[:, :pos]
-    track_seen = dcfg.repetition_penalty != 1.0
-    rows = torch.arange(batch, device=dev)
-    seen = None
-    if track_seen:
-        seen = torch.zeros((batch, width), dtype=torch.int8, device=dev)
-        _mark_seen(seen, rows, tokens[:, 0], v0, model_group)
-    n = dcfg.no_repeat_ngram_size
-    use_ban = bool(n) and length >= n
-    finished = torch.zeros(batch, dtype=torch.bool, device=dev)
-
-    while cache["index"] < length - 1 and not bool(finished.all()):
-        i = cache["index"]
-        hidden, cache = wm.apply_decoder_step(step_params, cfg, tokens[:, i],
-                                              cache, cross,
-                                              model_group=model_group,
-                                              step_attn=step_attn)
-        hiddens[:, i] = hidden
-        pos = i + 1   # position being generated
+    def next_token(hidden, pos):
+        """The (B,) tokens at `pos`: the forced prompt, K2, or the logits
+        and processors (with the step's noise when sampling)."""
         if sampling:
             noise = gumbel_noise((batch, cfg.vocab_size), generator)
         if pos < p_len:
-            nxt = prompt_t[pos].expand(batch)
-        elif not fused:
+            return prompt_t[pos].expand(batch)
+        if not fused:
             logits = tp.gather_vocab(torch.matmul(hidden.float(), table.t()),
                                      model_group, cfg.vocab_size)
             logits = _process_logits(
@@ -278,43 +288,59 @@ def generate(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
                 finished=finished)
             if sampling:
                 logits = logits / dcfg.temperature + noise
-            nxt = torch.argmax(logits, dim=-1)
-        else:
-            ban = (lp.ngram_ban_mask(tokens, pos, n, width, finished,
-                                     offset=None if model_group is None
-                                     else v0)
-                   if use_ban else None)
-            ts_bounds = None
-            if dcfg.return_timestamps:
-                ts_bounds = lp.timestamp_row_bounds(
-                    tokens, pos, begin_index=p_len,
-                    timestamp_begin=cfg.timestamp_begin_id,
-                    eos_token_id=cfg.eos_token_id)
-            step = functools.partial(
-                dl.fused_greedy_step, hidden, table_t,
-                add_begin if pos == p_len else add_base, seen=seen, ban=ban,
-                penalty=dcfg.repetition_penalty, ts_bounds=ts_bounds,
-                timestamp_begin=ts_begin)
-            if model_group is None:
-                nxt = step().long()
-            else:
-                nxt = dl.merge_partials(_gather_rows(
-                    step(vocab_offset=v0, partials=True),
-                    model_group)).long()
-        if pos >= p_len:
-            nxt = torch.where(finished, cfg.pad_token_id, nxt)
-            finished |= nxt == cfg.eos_token_id
-        tokens[:, pos] = nxt
-        if track_seen:
-            _mark_seen(seen, rows, nxt, v0, model_group)
+            return torch.argmax(logits, dim=-1)
+        ban = (lp.ngram_ban_mask(tokens, pos, n, width, finished,
+                                 offset=None if model_group is None
+                                 else v0)
+               if use_ban else None)
+        ts_bounds = None
+        if dcfg.return_timestamps:
+            ts_bounds = lp.timestamp_row_bounds(
+                tokens, pos, begin_index=p_len,
+                timestamp_begin=cfg.timestamp_begin_id,
+                eos_token_id=cfg.eos_token_id)
+        step = functools.partial(
+            dl.fused_greedy_step, hidden, table_t,
+            add_begin if pos == p_len else add_base, seen=seen, ban=ban,
+            penalty=dcfg.repetition_penalty, ts_bounds=ts_bounds,
+            timestamp_begin=ts_begin)
+        if model_group is None:
+            return step().long()
+        return dl.merge_partials(_gather_rows(
+            step(vocab_offset=v0, partials=True), model_group)).long()
+
+    def feed(i):
+        """The decoder step on the token at `i`: its hidden state kept,
+        its K/V written to the cache."""
+        nonlocal cache
+        with tracing.span("decode.blocks"):
+            hidden, cache = wm.apply_decoder_step(
+                step_params, cfg, tokens[:, i], cache, cross,
+                model_group=model_group, step_attn=step_attn)
+            hiddens[:, i] = hidden
+        tracing.count("decode.steps")
+        return hidden
+
+    done = batch == 0   # finished.all() of no rows
+    while cache["index"] < length - 1 and not done:
+        with tracing.span("decode.step"):
+            i = cache["index"]
+            hidden = feed(i)
+            pos = i + 1   # position being generated
+            with tracing.span("decode.logits"):
+                nxt = next_token(hidden, pos)
+                if pos >= p_len:
+                    nxt = torch.where(finished, cfg.pad_token_id, nxt)
+                    finished |= nxt == cfg.eos_token_id
+                tokens[:, pos] = nxt
+                if track_seen:
+                    _mark_seen(seen, rows, nxt, v0, model_group)
+            # the loop's one device read, after the step's launches
+            with tracing.span("decode.sync"):
+                done = bool(finished.all())
 
     # feed the final token once more for the last position's hidden state
-    i = cache["index"]
-    hidden, cache = wm.apply_decoder_step(step_params, cfg, tokens[:, i],
-                                          cache, cross,
-                                          model_group=model_group,
-                                          step_attn=step_attn)
-    hiddens[:, i] = hidden
+    feed(cache["index"])
 
     positions = torch.arange(length, device=dev)[None, :]
     is_eos = (tokens == cfg.eos_token_id) & (positions >= p_len)

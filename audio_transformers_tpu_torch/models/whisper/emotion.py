@@ -17,6 +17,7 @@ import torch
 from audio_transformers_tpu_torch.core.config import \
     EmotionWhisperConfig
 from audio_transformers_tpu_torch.core import params as cp
+from audio_transformers_tpu_torch.core import tracing
 from audio_transformers_tpu_torch.models.whisper import model as wm
 from audio_transformers_tpu_torch.ops import nn
 from audio_transformers_tpu_torch.ops.segment_pool import (
@@ -79,13 +80,15 @@ def sequence_emotion_from_hiddens(params: dict, hiddens: torch.Tensor,
     """(B, L, D) decode hiddens -> (B, C) float32 emotion logits. Pools
     over positions < lengths, or over all L positions when lengths is None
     (the reference's unmasked mean, which the head is trained on)."""
-    if lengths is None:
-        pooled = hiddens.float().mean(dim=1)
-    else:
-        mask = (torch.arange(hiddens.shape[1], device=hiddens.device)[None, :]
-                < lengths[:, None])
-        pooled = masked_sequence_mean(hiddens, mask)
-    return nn.linear(params["emotion_head"], pooled).float()
+    with tracing.span("emotion_head"):
+        if lengths is None:
+            pooled = hiddens.float().mean(dim=1)
+        else:
+            mask = (torch.arange(hiddens.shape[1],
+                                 device=hiddens.device)[None, :]
+                    < lengths[:, None])
+            pooled = masked_sequence_mean(hiddens, mask)
+        return nn.linear(params["emotion_head"], pooled).float()
 
 
 def segment_emotion_from_decode(params: dict, cfg: EmotionWhisperConfig,

@@ -40,6 +40,7 @@ from typing import Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from audio_transformers_tpu_torch.core import tracing
 from audio_transformers_tpu_torch.core.config import WhisperConfig
 from audio_transformers_tpu_torch.core.params import map_tensors
 from audio_transformers_tpu_torch.ops import nn
@@ -104,10 +105,21 @@ def _self_block(p: dict, x: Tensor, heads: int, impl: str,
 def _blocks(block, remat: bool):
     """`block`, or with remat `block` under activation checkpointing: its
     activations are dropped after the forward and recomputed in the
-    backward (the reference's jax.checkpoint over each block)."""
+    backward (the reference's jax.checkpoint over each block), where the
+    recorder sees each recompute as a `block.recompute` span."""
     if not remat:
         return block
-    return functools.partial(checkpoint, block, use_reentrant=False)
+    recomputed = functools.partial(_recomputed, block)
+    return functools.partial(checkpoint, recomputed, use_reentrant=False)
+
+
+def _recomputed(block, *args):
+    """block(*args), inside a `block.recompute` span when it runs in a
+    backward (remat's recompute) with the recorder on."""
+    if not tracing.enabled() or torch._C._current_graph_task_id() == -1:
+        return block(*args)
+    with tracing.span("block.recompute"):
+        return block(*args)
 
 
 def encode(params: dict, cfg: WhisperConfig, mel: Tensor, *,
@@ -128,13 +140,14 @@ def encode(params: dict, cfg: WhisperConfig, mel: Tensor, *,
     if attn_impl == "auto":
         attn_impl = "xla"
     p = params["encoder"]
-    x = nn.gelu(nn.conv1d(p["conv1"], mel, padding=1))
-    x = nn.gelu(nn.conv1d(p["conv2"], x, stride=2, padding=1))
-    x = x + p["pos"].detach()[None, : x.shape[1], :].to(x.dtype)
-    block = _blocks(_self_block, remat)
-    for bp in p["blocks"]:
-        x = block(bp, x, cfg.num_heads, attn_impl, model_group)
-    return nn.layer_norm(p["ln"], x)
+    with tracing.span("encode", device=mel.device):
+        x = nn.gelu(nn.conv1d(p["conv1"], mel, padding=1))
+        x = nn.gelu(nn.conv1d(p["conv2"], x, stride=2, padding=1))
+        x = x + p["pos"].detach()[None, : x.shape[1], :].to(x.dtype)
+        block = _blocks(_self_block, remat)
+        for bp in p["blocks"]:
+            x = block(bp, x, cfg.num_heads, attn_impl, model_group)
+        return nn.layer_norm(p["ln"], x)
 
 
 def _cross_block(p: dict, x: Tensor, enc: Tensor, heads: int,
@@ -249,6 +262,7 @@ def prepare_decode_params(params: dict, cfg: WhisperConfig,
     return out
 
 
+@tracing.spanned("cross_kv")
 def precompute_cross_attention(params: dict, cfg: WhisperConfig, enc: Tensor,
                                *, quant: str = "none") -> dict:
     """Cross-attention K/V of every decoder layer, computed once per clip.

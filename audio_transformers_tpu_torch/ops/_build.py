@@ -16,6 +16,8 @@ one is loaded as it is. The sources are compiled without
 Every kernel also has a `KernelStats` entry: `launches` counts the
 wrapper's kernel launches, `plain_cuda_calls` counts calls of the kernel's
 plain PyTorch version on a CUDA tensor (the main path never makes one).
+With the recorder on (`core/tracing.py`), a first load or `build_all` is an
+`ops.build` span and each nvcc run adds to the counter `ops.nvcc_builds`.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ import threading
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict
+
+from audio_transformers_tpu_torch.core import tracing
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -99,6 +103,7 @@ def library_path(name: str) -> Path:
 
 def _start_compile(name: str, out: Path):
     """Starts nvcc for csrc/<name>.cu; `_finish_compile` waits for it."""
+    tracing.count("ops.nvcc_builds")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
@@ -122,10 +127,11 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            path = library_path(name)
-            if not path.exists():
-                _finish_compile(_start_compile(name, path))
-            lib = ctypes.CDLL(str(path))
+            with tracing.span("ops.build"):
+                path = library_path(name)
+                if not path.exists():
+                    _finish_compile(_start_compile(name, path))
+                lib = ctypes.CDLL(str(path))
             _libs[name] = lib
         return lib
 
@@ -133,7 +139,7 @@ def load(name: str) -> ctypes.CDLL:
 def build_all() -> None:
     """Compiles every missing library, one nvcc per source, all started
     together, then loads them all."""
-    with _lock:
+    with _lock, tracing.span("ops.build"):
         jobs = [_start_compile(name, library_path(name))
                 for name in KERNEL_SOURCES
                 if name not in _libs and not library_path(name).exists()]

@@ -64,6 +64,7 @@ import torch.nn.functional as F
 from audio_transformers_tpu_torch.core.config import (
     EmotionWhisperConfig, MelConfig, TrainConfig)
 from audio_transformers_tpu_torch.core import params as cp
+from audio_transformers_tpu_torch.core import tracing
 from audio_transformers_tpu_torch.core.checkpoint import (Checkpointer,
                                                           save_label_map)
 from audio_transformers_tpu_torch.core.params import resolve_device
@@ -167,7 +168,13 @@ def make_steps(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
     gradients over the ranks before the optimizer steps; its metrics are
     this rank's share (`common.mean_over_ranks` averages them). With a
     model axis the parameters are this rank's shards (`emo.param_axes`)
-    and `opt` is built over them with the model group and the axes."""
+    and `opt` is built over them with the model group and the axes.
+
+    With the recorder on (`core/tracing.py`), a train step is a
+    `train.step` span around `train.forward` (`log_mel`, `encode`),
+    `train.loss`, `train.backward` (remat's `block.recompute` spans),
+    `train.grad_average` on several ranks and `train.optimizer` (CUDA
+    events on the card)."""
     device = torch.device(device)
     compute_dtype = DTYPES[train_cfg.compute_dtype]
     pad = cfg.whisper.pad_token_id
@@ -179,26 +186,34 @@ def make_steps(cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
     mel_precision = "high" if compute_dtype == torch.bfloat16 else "highest"
 
     def forward(params, batch, attn, generator=None, remat=False):
-        mel = log_mel(batch["waveform"], mel_cfg,
-                      precision=mel_precision).to(compute_dtype)
+        with tracing.span("log_mel"):
+            mel = log_mel(batch["waveform"], mel_cfg,
+                          precision=mel_precision).to(compute_dtype)
         if train_cfg.spec_augment and generator is not None:
             mel = sa.spec_augment(generator, mel)
         return emo.forward_train(params, cfg, mel, batch["labels"][:, :-1],
                                  remat=remat, attn_impl=attn,
                                  model_group=mesh.model_group)
 
+    @tracing.spanned("train.step")
     def train_step(params, batch, generator=None):
-        logits, emotion_logits = forward(params, batch, attn_impl, generator,
-                                         train_cfg.remat)
-        out = dual_loss(logits, emotion_logits, batch["labels"],
-                        batch["emotion_labels"], pad_token_id=pad,
-                        emotion_weight=train_cfg.emotion_weight,
-                        group=mesh.group, model_group=mesh.model_group,
-                        vocab_size=cfg.whisper.vocab_size)
+        with tracing.span("train.forward"):
+            logits, emotion_logits = forward(params, batch, attn_impl,
+                                             generator, train_cfg.remat)
+        with tracing.span("train.loss"):
+            out = dual_loss(logits, emotion_logits, batch["labels"],
+                            batch["emotion_labels"], pad_token_id=pad,
+                            emotion_weight=train_cfg.emotion_weight,
+                            group=mesh.group, model_group=mesh.model_group,
+                            vocab_size=cfg.whisper.vocab_size)
         opt.zero_grad()
-        out["loss"].backward()
-        average_gradients(opt.params, mesh)
-        opt.step()
+        with tracing.span("train.backward"):
+            out["loss"].backward()
+        if mesh.group is not None:
+            with tracing.span("train.grad_average"):
+                average_gradients(opt.params, mesh)
+        with tracing.span("train.optimizer", device=device):
+            opt.step()
         return {k: v.detach() for k, v in out.items()}
 
     @torch.no_grad()
