@@ -273,10 +273,10 @@ def generate_beam(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
         return ([a for k in keys for a in cache[k]]
                 + ([seen] if track_seen else []) + [tokens])
 
-    def unflat(bufs, index):
+    def unflat(bufs, old):
         c = {k: bufs[j * n_layers:(j + 1) * n_layers]
              for j, k in enumerate(keys)}
-        c["index"] = index
+        c["index"], c["pos"] = old["index"], old["pos"]
         return c, (bufs[-2] if track_seen else None), bufs[-1]
 
     spare = [torch.empty_like(a) for a in flat(cache, seen, tokens)]
@@ -349,7 +349,7 @@ def generate_beam(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
         bufs = flat(cache, seen, tokens)
         gathered = permute_rows(bufs, flat_parent, out=spare)
         spare = bufs
-        cache, seen, tokens = unflat(gathered, cache["index"])
+        cache, seen, tokens = unflat(gathered, cache)
         nxt = nxt_tok.reshape(-1)
         tokens[:, pos] = nxt
         if track_seen:

@@ -36,14 +36,31 @@ logits, and so sampling, gather the rank's logits to the whole vocab
 generator seeded alike). So every rank holds the same tokens and
 `finished` flags, and leaves the loop at the same step.
 
+On the card, and without a model group, the decoder step is captured in
+a CUDA graph (`model._capture_after_first_step`): the first step runs
+eagerly on a side stream, the step body is captured there at once, and
+every later step, the final feed included, replays the graph through
+`model.apply_decoder_step`: one graph launch for the decoder blocks'
+kernels (about 2100 at large-v3 width). The token stays eager: the
+prompt, K2 or the logits and processors, the ban, the seen marks and the
+`finished` read issue while the card runs the graph, so the host no
+longer sets the step's pace. The graph is replayed in its call only (its
+memory pool passes to a later capture); nothing turns it on or off but
+what the call observes. Under a model group the blocks' all-reduces stay
+eager, and so does the whole step; on the CPU there is nothing to
+capture.
+
 With the recorder on (`core/tracing.py`), a greedy call is a
 `decode.generate` span around `cross_kv`, `decode.prepare` (the
 step-ready weights, padded table and masks; CUDA events on the card) and
 one `decode.step` per loop iteration, which holds `decode.blocks` (the
-decoder step), `decode.logits` (the token: K2 or the logits and
-processors, the n-gram ban, the seen marks) and `decode.sync` (the loop's
-one device read, the `finished` test). The counter `decode.steps` counts
-the decoder steps, the final feed included.
+decoder step; in the first, on the card, the `decode.capture` span of the
+capture and instantiation), `decode.logits` (the token: K2 or the logits
+and processors, the n-gram ban, the seen marks) and `decode.sync` (the
+loop's one device read, the `finished` test). The counter `decode.steps`
+counts the decoder steps, the final feed included; `decode.graph_captures`
+counts captures and `decode.graph_replays` the steps replayed (all but
+the first where the step is captured).
 """
 
 from __future__ import annotations
@@ -162,6 +179,13 @@ def resolve_logits_impl(dcfg: DecodeConfig) -> str:
     if dcfg.temperature and dcfg.temperature > 0.0:
         return "xla"
     return "fused" if impl == "auto" else impl
+
+
+def _capture_allowed(enc: torch.Tensor, model_group) -> bool:
+    """Whether `generate` captures its decoder step in a CUDA graph: on
+    the card and without a model group, whose all-reduces stay eager. A
+    test patches it to hold the captured decode to the eager loop."""
+    return enc.is_cuda and model_group is None
 
 
 def gumbel_noise(shape: Tuple[int, ...],
@@ -309,14 +333,24 @@ def generate(params: dict, cfg: WhisperConfig, dcfg: DecodeConfig,
         return dl.merge_partials(_gather_rows(
             step(vocab_offset=v0, partials=True), model_group)).long()
 
+    # the first step is followed by the step body's capture where the call
+    # allows it and another step follows (length > 1)
+    capture = (batch > 0 and length > 1
+               and _capture_allowed(enc, model_group))
+
     def feed(i):
         """The decoder step on the token at `i`: its hidden state kept,
         its K/V written to the cache."""
         nonlocal cache
         with tracing.span("decode.blocks"):
-            hidden, cache = wm.apply_decoder_step(
-                step_params, cfg, tokens[:, i], cache, cross,
-                model_group=model_group, step_attn=step_attn)
+            if capture and i == 0:
+                hidden, cache = wm._capture_after_first_step(
+                    step_params, cfg, tokens[:, i], cache, cross,
+                    step_attn=step_attn)
+            else:
+                hidden, cache = wm.apply_decoder_step(
+                    step_params, cfg, tokens[:, i], cache, cross,
+                    model_group=model_group, step_attn=step_attn)
             hiddens[:, i] = hidden
         tracing.count("decode.steps")
         return hidden
@@ -356,7 +390,9 @@ def _mark_seen(seen: torch.Tensor, rows: torch.Tensor, ids: torch.Tensor,
     the vocab columns [v0, v0 + width), and ids outside them leave it as
     it is."""
     if group is None:
-        seen[rows, ids] = 1
+        # a device value: a Python 1 would be copied in from pageable
+        # memory, which waits for the stream
+        seen[rows, ids] = seen.new_ones(())
         return
     local = ids - v0
     hit = ((local >= 0) & (local < seen.shape[1])).to(seen.dtype)

@@ -26,16 +26,28 @@ CPU), over bf16/f32, int8 or nibble-packed int4 cross K/V, or, with
 arithmetic (`resolve_step_attn`); with beams, the
 beams of a row share its cross K/V in one batched product instead. Self-attention over the short cache (bf16/f32, or int8
 with per-step scales) stays plain PyTorch, as it stays XLA in the
-reference. Unlike the reference's functional cache, the port's cache is
-written in place: `apply_decoder_step` fills column `cache["index"]` of
-each layer's buffers and advances the index.
+reference, and attends over the whole static cache with the columns past
+the position masked, as the reference does: a step's shapes do not
+depend on its position. Unlike the reference's functional cache, the
+port's cache is written in place: `apply_decoder_step` fills column
+`cache["index"]` of each layer's buffers and advances the index.
+
+The step's body (`_decoder_step`) reads its position from the cache's
+0-d device tensor `cache["pos"]`, which `apply_decoder_step` advances
+beside the host's `cache["index"]`. `decode.generate` runs the first
+step eagerly on a side stream and captures the body there in a CUDA
+graph (`_StepGraph`, through `_capture_after_first_step`); while the
+cache carries it (`cache["graph"]`), `apply_decoder_step` replays it,
+one graph launch a step.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+import threading
+import weakref
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -43,7 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from audio_transformers_tpu_torch.core import tracing
 from audio_transformers_tpu_torch.core.config import WhisperConfig
 from audio_transformers_tpu_torch.core.params import map_tensors
-from audio_transformers_tpu_torch.ops import nn
+from audio_transformers_tpu_torch.ops import _build, decode_attention, nn
 from audio_transformers_tpu_torch.ops.decode_attention import (
     decode_cross_attention, decode_cross_attention_reference, pack_int4,
     unpack_int4)
@@ -202,8 +214,11 @@ def init_cache(cfg: WhisperConfig, batch: int, *,
                device=None, quant: str = "none",
                model_size: int = 1) -> dict:
     """Self-attention K/V buffers of static length, one per layer, in the
-    time-minor (B, H, hd, L) layout, and the write index (a host int);
-    on a model axis of `model_size`, H is this rank's heads.
+    time-minor (B, H, hd, L) layout, and the write index twice: a host
+    int ("index", which the loops read) and a 0-d int64 tensor on the
+    buffers' device ("pos", which the step reads, so that a captured step
+    reads it too); on a model axis of `model_size`, H is this rank's
+    heads.
 
     quant="int8" stores int8 K/V with one float32 scale per written time
     step, "k_scale" and "v_scale" of (B, H, L), as the reference does:
@@ -224,6 +239,7 @@ def init_cache(cfg: WhisperConfig, batch: int, *,
         cache["k_scale"] = zeros((batch, h, max_len), torch.float32)
         cache["v_scale"] = zeros((batch, h, max_len), torch.float32)
     cache["index"] = 0
+    cache["pos"] = torch.zeros((), dtype=torch.long, device=device)
     return cache
 
 
@@ -455,8 +471,10 @@ def apply_decoder_step(sp: dict, cfg: WhisperConfig, token: Tensor,
     (`prepare_decode_params`). token (B,) int64 -> (hidden (B, d_model),
     cache).
 
-    Writes this step's self K/V at column cache["index"] (in place),
-    attends over columns [0, index], then advances the index. An int8
+    Writes this step's self K/V at column cache["pos"] (in place; the
+    host's cache["index"] holds the same number), attends over the whole
+    cache with the columns past it masked out (probability exactly 0),
+    then advances both. An int8
     cache (`init_cache(quant="int8")`) takes the reference's int8
     self-attention: the new K/V column is quantized with its own scale,
     q is quantized per row, and the probabilities, with the V scales
@@ -474,10 +492,39 @@ def apply_decoder_step(sp: dict, cfg: WhisperConfig, token: Tensor,
     and hidden units and its rows of the embedding (`param_axes`): the
     lookup is vocab-parallel (one all-reduce), and each layer's self o,
     cross o and fc2 projections end in an all-reduce, so the hidden state
-    returned is the whole one on every rank."""
+    returned is the whole one on every rank.
+
+    While the cache carries a captured step (`cache["graph"]`, set by
+    `decode.generate` on the card), the step is a replay of that graph on
+    `token`, and the hidden state returned is the graph's output buffer,
+    which the next replay overwrites."""
+    graph = cache.get("graph")
+    if graph is not None:
+        hidden = graph.replay(token)
+    else:
+        hidden = _decoder_step(sp, cfg, token, cache, cross, beams=beams,
+                               model_group=model_group, step_attn=step_attn)
+    cache["index"] += 1
+    cache["pos"] += 1
+    return hidden, cache
+
+
+def _column(buf: Tensor, pos: Tensor, val: Tensor) -> None:
+    """Writes val (...) as column `pos` (0-d int64) of buf (..., L), in
+    place."""
+    buf.index_copy_(buf.dim() - 1, pos.view(1), val.unsqueeze(-1))
+
+
+def _decoder_step(sp: dict, cfg: WhisperConfig, token: Tensor, cache: dict,
+                  cross: dict, *, beams: int = 1, model_group=None,
+                  step_attn: str = "auto") -> Tensor:
+    """The body of `apply_decoder_step` at the position cache["pos"]: every
+    shape is the same at every position, and it makes no host sync, so it
+    can be captured in a CUDA graph. It writes the cache's columns at the
+    position and leaves both indices as they are; returns the hidden
+    state (B, d_model)."""
     if beams > 1 and "p_dtype" not in cross:
         raise ValueError("a beam step reads the cross K/V of beam_cross()")
-    idx = cache["index"]
     b = token.shape[0]
     hd = cfg.head_dim
     d = sp["blocks"][0]["qkv"]["w"].shape[0] // 3        # this rank's width
@@ -491,8 +538,13 @@ def apply_decoder_step(sp: dict, cfg: WhisperConfig, token: Tensor,
                        else xla_cross_attention)
 
     x = nn.embedding_lookup(sp["embed"], token, group, cfg.vocab_size)
-    x = x + sp["pos"][idx][None, :]
+    pos = cache["pos"]
+    x = x + sp["pos"].index_select(0, pos.view(1))
     x = x.to(sp["blocks"][0]["qkv"]["w"].dtype)
+    # the reference's mask: columns past pos take finfo.min before the
+    # softmax, whose exp underflows to exactly 0
+    visible = torch.arange(cache["k"][0].shape[-1], device=x.device) <= pos
+    masked = torch.finfo(torch.float32).min
     for li, bp in enumerate(sp["blocks"]):
         h = nn.layer_norm(bp["self_ln"], x)
         qkv = nn.linear(bp["qkv"], h)                     # (B, 3D)
@@ -500,33 +552,31 @@ def apply_decoder_step(sp: dict, cfg: WhisperConfig, token: Tensor,
         k_new = qkv[:, d:2 * d].reshape(b, h_heads, hd)
         v_new = qkv[:, 2 * d:].reshape(b, h_heads, hd)
         k_all, v_all = cache["k"][li], cache["v"][li]
-        # columns past idx are masked out in the reference (exp of
-        # finfo.min underflows to 0), so attending over [0, idx] is equal
-        k_vis, v_vis = k_all[..., :idx + 1], v_all[..., :idx + 1]
         if self_quant:
             kq, ks = _q8(k_new)
             vq, vs = _q8(v_new)
-            k_all[..., idx] = kq.to(torch.int8)
-            v_all[..., idx] = vq.to(torch.int8)
-            cache["k_scale"][li][..., idx] = ks[..., 0]
-            cache["v_scale"][li][..., idx] = vs[..., 0]
-            ks_vis = cache["k_scale"][li][..., :idx + 1]
-            vs_vis = cache["v_scale"][li][..., :idx + 1]
+            _column(k_all, pos, kq.to(torch.int8))
+            _column(v_all, pos, vq.to(torch.int8))
+            ks_all, vs_all = cache["k_scale"][li], cache["v_scale"][li]
+            _column(ks_all, pos, ks[..., 0])
+            _column(vs_all, pos, vs[..., 0])
             qq, qs = _q8(q)
-            logits = (torch.einsum("bhd,bhdk->bhk", qq, k_vis.float())
-                      * qs * ks_vis * scale)
-            p = torch.softmax(logits, dim=-1) * vs_vis
+            logits = (torch.einsum("bhd,bhdk->bhk", qq, k_all.float())
+                      * qs * ks_all * scale)
+            logits = torch.where(visible, logits, masked)
+            p = torch.softmax(logits, dim=-1) * vs_all
             ps = p.amax(dim=-1, keepdim=True).clamp(min=1e-30) / 127.0
             attn = (torch.einsum("bhk,bhdk->bhd", torch.round(p / ps),
-                                 v_vis.float()) * ps).to(x.dtype)
+                                 v_all.float()) * ps).to(x.dtype)
         else:
-            k_all[..., idx] = k_new
-            v_all[..., idx] = v_new
+            _column(k_all, pos, k_new)
+            _column(v_all, pos, v_new)
             logits = torch.einsum("bhd,bhdk->bhk", q.float(),
-                                  k_vis.float()) * scale
+                                  k_all.float()) * scale
+            logits = torch.where(visible, logits, masked)
             probs = torch.softmax(logits, dim=-1).to(v_all.dtype)
             attn = torch.einsum("bhk,bhdk->bhd", probs.float(),
-                                v_vis.float()).to(x.dtype)
+                                v_all.float()).to(x.dtype)
         x = x + nn.row_linear(bp["self_o"], attn.reshape(b, d), group)
 
         h = nn.layer_norm(bp["cross_ln"], x)
@@ -546,5 +596,121 @@ def apply_decoder_step(sp: dict, cfg: WhisperConfig, token: Tensor,
 
         h = nn.layer_norm(bp["mlp_ln"], x)
         x = x + _mlp(bp, h, group)
-    cache["index"] = idx + 1
-    return nn.layer_norm(sp["ln"], x), cache
+    return nn.layer_norm(sp["ln"], x)
+
+
+class _StepGraph:
+    """`_decoder_step` captured once in a CUDA graph over one decode's
+    weights, self cache (its position `cache["pos"]` included) and cross
+    K/V, with a static token buffer.
+
+    The graph is replayed only through the cache that carries it, and so
+    in one `generate` call: weights updated in place between calls are
+    read as they are. Its memory comes from `pool`: the pool of a graph
+    that no decode replays any more (`_capture_after_first_step`), or a
+    new one (None). Torch returns a dead graph's own pool to the card only
+    at `empty_cache` or an allocation that fails, so a new pool a call
+    held 24 MiB (whisper-tiny) to 40 MiB (large-v3, batch 64) more at
+    every call. A pool is never shared by two graphs in use: the output
+    buffer, which the token's eager work reads after the replay, could be
+    the other graph's scratch, and its replay, queued in between by
+    another thread, would overwrite it. K1 launches in the graph take
+    scratch of the graph's own (`decode_attention.graph_scratch`). The
+    kernel launches that the capture records (`_build.tally`, this
+    thread's only) are added to `_build.STATS` at each replay."""
+
+    def __init__(self, sp: dict, cfg: WhisperConfig, cache: dict,
+                 cross: dict, *, step_attn: str, stream, pool):
+        dev = cache["k"][0].device
+        # on the current stream, the one that replays the graph
+        self.token = torch.zeros(cache["k"][0].shape[0], dtype=torch.long,
+                                 device=dev)
+        self.graph = torch.cuda.CUDAGraph()
+        with _build.tally() as self.counts, torch.cuda.stream(stream), \
+                decode_attention.graph_scratch(dev, stream):
+            self.graph.capture_begin(pool=pool,
+                                     capture_error_mode="thread_local")
+            try:
+                self.hidden = _decoder_step(sp, cfg, self.token, cache,
+                                            cross, step_attn=step_attn)
+            finally:
+                self.graph.capture_end()
+
+    def replay(self, token: Tensor) -> Tensor:
+        """The step on `token` (B,): the graph replayed on the current
+        stream; returns the output buffer."""
+        self.token.copy_(token)
+        self.graph.replay()
+        for name, counted in self.counts.items():
+            _build.STATS[name].launches += counted.launches
+            _build.STATS[name].plain_cuda_calls += counted.plain_cuda_calls
+        tracing.count("decode.graph_replays")
+        return self.hidden
+
+
+# a device's side stream for the first step and the capture, which take
+# it one call at a time, and the graphs whose decodes have ended, each with
+# an event after its last replay: never replayed again, each is kept so
+# that its memory pool lives on for a later capture (torch takes a pool
+# for a capture only while a graph of it lives: a dead graph's fails an
+# internal assert of its allocators)
+_CAPTURE_STATE: Dict[int, Tuple["torch.cuda.Stream", list]] = {}
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _graph_ended(ended: list, graph, stream) -> None:
+    """A decode dropped its step: `graph` and an event on the stream that
+    replayed it, after everything queued there so far, join `ended`."""
+    done = torch.cuda.Event()
+    done.record(stream)
+    ended.append((graph, done))
+
+
+def _capture_after_first_step(sp: dict, cfg: WhisperConfig, token: Tensor,
+                              cache: dict, cross: dict, *,
+                              step_attn: str = "auto") -> Tuple[Tensor, dict]:
+    """`apply_decoder_step` for a decode's first step, on the card and
+    without a model group, then the step body captured for the rest of
+    the decode (cache["graph"], a `_StepGraph`).
+
+    The first step runs eagerly through `apply_decoder_step` on a side
+    stream: torch's warm-up on the stream that the capture uses (cuBLAS's
+    workspace for that stream). The current stream waits for it, and the
+    capture follows at once, while the card runs the first step, in a
+    `decode.capture` span. The graph's static buffers are made on the
+    current stream, which replays the graph: made on the side stream, a
+    buffer freed at the end of one thread's decode could be handed to
+    another thread's first step while the first thread's last replays
+    still read it. The replays of a graph that takes an ended graph's
+    pool wait for that graph's last replay, whichever stream ran it.
+    Returns what `apply_decoder_step` does."""
+    dev = token.device
+    current = torch.cuda.current_stream(dev)
+    with _CAPTURE_LOCK:
+        state = _CAPTURE_STATE.get(dev.index)
+        if state is None:
+            # from torch's pool of high-priority streams: the default-priority
+            # pool hands its 32 streams out in turn, and a thread whose
+            # stream came round to this one could not decode during another
+            # thread's capture
+            state = _CAPTURE_STATE[dev.index] = (
+                torch.cuda.Stream(dev, priority=-1), [])
+        side, ended = state
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            hidden, cache = apply_decoder_step(sp, cfg, token, cache, cross,
+                                               step_attn=step_attn)
+        current.wait_stream(side)
+        hidden.record_stream(current)
+        last, done = ended.pop() if ended else (None, None)
+        if done is not None:
+            current.wait_event(done)
+        with tracing.span("decode.capture"):
+            step = _StepGraph(sp, cfg, cache, cross, step_attn=step_attn,
+                              stream=side,
+                              pool=None if last is None else last.pool())
+        # once the decode drops the step, its pool is free for another
+        weakref.finalize(step, _graph_ended, ended, step.graph, current)
+        cache["graph"] = step
+        tracing.count("decode.graph_captures")
+    return hidden, cache

@@ -16,12 +16,17 @@ one is loaded as it is. The sources are compiled without
 Every kernel also has a `KernelStats` entry: `launches` counts the
 wrapper's kernel launches, `plain_cuda_calls` counts calls of the kernel's
 plain PyTorch version on a CUDA tensor (the main path never makes one).
+Launches that a CUDA graph's capture records run only when the graph is
+replayed: inside `tally()` a thread's counts go to a table of the
+capture's own, which the graph adds to `STATS` at each replay.
 With the recorder on (`core/tracing.py`), a first load or `build_all` is an
 `ops.build` span and each nvcc run adds to the counter `ops.nvcc_builds`.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -68,10 +73,36 @@ def reset_stats() -> None:
         s.plain_cuda_calls = 0
 
 
+_tally = threading.local()
+
+
+def _stats() -> Dict[str, KernelStats]:
+    counts = getattr(_tally, "counts", None)
+    return STATS if counts is None else counts
+
+
+def count_launch(name: str) -> None:
+    """Called by each kernel's wrapper after a launch."""
+    _stats()[name].launches += 1
+
+
 def count_plain(name: str, t) -> None:
     """Called by each kernel's plain version: records a run on the card."""
     if t.is_cuda:
-        STATS[name].plain_cuda_calls += 1
+        _stats()[name].plain_cuda_calls += 1
+
+
+@contextlib.contextmanager
+def tally():
+    """While open, this thread's launches and plain calls are counted in
+    the table it yields (name -> KernelStats), not in `STATS`; other
+    threads count as before."""
+    counts = collections.defaultdict(KernelStats)
+    _tally.counts = counts
+    try:
+        yield counts
+    finally:
+        _tally.counts = None
 
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -188,7 +188,7 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor,
     rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
             _build.ptr(lse), *_dims(q, k, causal))
     _build.check(rc, "flash_attention_fwd")
-    _build.STATS["flash_attention_fwd"].launches += 1
+    _build.count_launch("flash_attention_fwd")
     return out, lse
 
 
@@ -208,7 +208,7 @@ def flash_attention_bwd_dq(q: Tensor, k: Tensor, v: Tensor, dout: Tensor,
             _build.ptr(lse), _build.ptr(delta), _build.ptr(dq),
             *_dims(q, k, causal))
     _build.check(rc, "flash_attention_bwd_dq")
-    _build.STATS["flash_attention_bwd_dq"].launches += 1
+    _build.count_launch("flash_attention_bwd_dq")
     return dq
 
 
@@ -229,7 +229,7 @@ def flash_attention_bwd_dkv(q: Tensor, k: Tensor, v: Tensor, dout: Tensor,
             _build.ptr(lse), _build.ptr(delta), _build.ptr(dk),
             _build.ptr(dv), *_dims(q, k, causal))
     _build.check(rc, "flash_attention_bwd_dkv")
-    _build.STATS["flash_attention_bwd_dkv"].launches += 1
+    _build.count_launch("flash_attention_bwd_dkv")
     return dk, dv
 
 

@@ -17,7 +17,8 @@ and the last block of a (b, h) to finish merges the partials in split
 order, in the same launch. It finds out through a counter per (b, h) that
 the wrapper allocates once per device and stream, with the partials'
 scratch, and the merging block resets. No score row is held for all of T, so T is not bounded by shared
-memory.
+memory. Launches captured in a CUDA graph take scratch of the graph's own
+(`graph_scratch`).
 
 int8 mode folds the per-key `k_scale` into the logit row and the
 per-channel `v_scale` into the output row; q and the probabilities are
@@ -30,6 +31,7 @@ each sub-tile's even keys, then its odd ones, with the same folding.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -93,6 +95,23 @@ def _scratch(device: torch.device, stream: int, bh: int,
                            device=device)
     _SCRATCH[key] = (count, part)
     return count, part
+
+
+@contextlib.contextmanager
+def graph_scratch(device: torch.device, stream):
+    """While a CUDA graph captures on `stream`: K1's launches there take
+    scratch that belongs to the graph (allocated in its memory pool at
+    the first launch, the counters zeroed at each replay), not the
+    stream's. The graph replays on another stream, while eager launches
+    may go on using the stream's scratch."""
+    key = (device.index, stream.cuda_stream)
+    kept = _SCRATCH.pop(key, None)
+    try:
+        yield
+    finally:
+        _SCRATCH.pop(key, None)
+        if kept is not None:
+            _SCRATCH[key] = kept
 
 
 def pack_int4(x: torch.Tensor) -> torch.Tensor:
@@ -223,5 +242,5 @@ def decode_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             chunk, splits, scale, _DTYPES[q.dtype],
             _DTYPES["int4" if int4 else k.dtype], stream)
     _build.check(rc, "decode_cross_attention")
-    _build.STATS["decode_cross_attention"].launches += 1
+    _build.count_launch("decode_cross_attention")
     return out

@@ -24,7 +24,8 @@ logits never reach device memory.
   the merge counters are scratch kept per (device, stream).
 - float32, the parity route: `csrc/decode_logits.cu`, an FMA kernel in
   two passes (one block per 256-id tile and 8 rows, then a merge per
-  row).
+  row). Its partials are made for each call: another thread's launches
+  on the same stream may fall between the two passes.
 
 The vocab-shard mode (`vocab_offset`, `partials=True`; tensor
 parallelism, where each rank holds the table's columns [v0, v0 + V_pad/t))
@@ -391,12 +392,13 @@ def fused_greedy_step(hidden: torch.Tensor, table_t: torch.Tensor,
         if 4 * ROWS * (d + TILE_V) > _SMEM_LIMIT:
             raise ValueError(f"D={d} too wide for the kernel's shared "
                              f"memory")
-        _, pf, pi = _scratch(hidden.device, stream.value, 0,
-                             4 * b * (v_pad // TILE_V))
+        n = 4 * b * (v_pad // TILE_V)
+        pf = torch.empty(n, dtype=torch.float32, device=hidden.device)
+        pi = torch.empty(n, dtype=torch.int32, device=hidden.device)
         fn = _build.function(source, "fused_greedy_step", _ARGTYPES)
         rc = fn(*common, _DTYPES[hidden.dtype], _build.ptr(pf),
                 _build.ptr(pi), *tail, stream)
     name = "fused_greedy_step_partials" if partials else "fused_greedy_step"
     _build.check(rc, name)
-    _build.STATS[name].launches += 1
+    _build.count_launch(name)
     return out

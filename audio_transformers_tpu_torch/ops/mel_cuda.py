@@ -191,7 +191,7 @@ def _launch(wav: torch.Tensor, cfg: MelConfig, t_full: int,
             smem, int(cfg.power == 1.0), _LOG_MODES[cfg.log_mode],
             _build.stream_ptr(wav))
     _build.check(rc, "log_mel")
-    _build.STATS["log_mel"].launches += 1
+    _build.count_launch("log_mel")
     return out
 
 

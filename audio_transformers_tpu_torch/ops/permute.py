@@ -113,5 +113,5 @@ def permute_rows(bufs: Sequence[torch.Tensor], perm: torch.Tensor,
             *[a.nbytes // rows if rows else 0 for a in src])
         rc = fn(srcs, dsts, nbytes, n, _build.ptr(perm), rows, stream)
         _build.check(rc, "permute_rows")
-        _build.STATS["permute_rows"].launches += 1
+        _build.count_launch("permute_rows")
     return out

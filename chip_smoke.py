@@ -40,6 +40,9 @@ each raising on failure:
   5. the serving path: EmotionWhisperPipeline.analyze of a 12 s clip at the
      full width of whisper-tiny (seeded random weights, bfloat16), with
      every kernel's launch counter reset just before and read just after;
+     then K1's device records (dca_split, torch.profiler) over three more
+     calls, whose decodes replay a captured step, equal to the launches
+     `_build.STATS` counts for them;
   6. the HTTP server on 127.0.0.1 with the micro-batcher, answering three
      concurrent /analyze requests;
   7. the flash-attention kernels K4a/b/c against their plain versions at
@@ -96,8 +99,10 @@ each raising on failure:
      1.1, no-repeat 3-gram), kv_quant "none" and "int4", with the
      fallback at the reference's 2.4 (byte tokenizer) and at 1e-6 over the
      id bytes, which re-decodes every row at temperature 0.7; counters
-     reset around each run: K1 (every call in int4 mode with int4), K2
-     (in its timestamp mode) and K3 launched, no plain version on CUDA;
+     reset around each run: K1 (every call in int4 mode with int4, and
+     its launches the eager calls plus each replayed step's decoder
+     layers), K2 (in its timestamp mode) and K3 launched, no plain version
+     on CUDA;
      the wall time, segments, re-decoded rows and launches logged;
   19. the same evaluation with 4 beams and int4 cross K/V: K5 launched;
   20. model I/O, the HF directory: phase 5's seeded whisper-tiny exported
@@ -940,6 +945,41 @@ def check_server(pipe, synth_clip):
         f"{wall:.3f} s; micro-batcher stats {batcher.stats}")
 
 
+def check_replayed_k1(torch, _build, fn, what, reps=3):
+    """Phase 5: K1's device records (dca_split) over `reps` calls of fn(),
+    whose decodes replay a captured step, against the launches
+    `_build.STATS` counts for the same calls. A replay adds the K1
+    launches that its capture recorded: the two agree only where every
+    replay launches them. Taken after the profiler's warm-up cycle, and
+    again, up to PROFILE_TRIES times, where records are missing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    stats = _build.STATS["decode_cross_attention"]
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            before = stats.launches
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            counted = stats.launches - before
+            prof.step()
+        records = sum(1 for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and "dca_split" in e.name)
+        log(f"{what}: K1 over {reps} calls: {records} device records, "
+            f"{counted} launches counted")
+        require(counted > 0 and records <= counted,
+                f"{what}: more K1 records than launches counted")
+        if records == counted:
+            return counted
+    require(False, f"{what}: K1's device records never matched its count")
+
+
 # ---------------------------------------------------------------------------
 # phases 7-11: the training path
 # ---------------------------------------------------------------------------
@@ -1654,6 +1694,12 @@ def check_eval_full(torch, _build, params, cfg, mode, threshold, tokenizer,
             Spy(wm, "decode_cross_attention",
                 lambda a, k: k.get("k_scale") is not None
                 and k["k_scale"].dim() == 4) as k1_int4, \
+            Spy(wm, "decode_cross_attention") as k1_all, \
+            Spy(wm, "decode_cross_attention",
+                lambda a, k: not torch.cuda.is_current_stream_capturing()) \
+            as k1_eager, \
+            Spy(wm, "apply_decoder_step",
+                lambda a, k: a[3].get("graph") is not None) as replays, \
             Spy(dl, "fused_greedy_step",
                 lambda a, k: k.get("ts_bounds") is not None) as k2_ts, \
             Spy(decode, "generate",
@@ -1691,10 +1737,18 @@ def check_eval_full(torch, _build, params, cfg, mode, threshold, tokenizer,
     if beams == 1:
         require(k2_ts.calls > 0, f"{what}: K2 never ran its timestamp mode")
         if mode == "int4":
-            require(k1_int4.calls > 0 and k1_int4.calls
-                    == stats["decode_cross_attention"][0],
-                    f"{what}: K1 ran {k1_int4.calls} of "
-                    f"{stats['decode_cross_attention'][0]} calls in int4 mode")
+            require(k1_int4.calls > 0 and k1_int4.calls == k1_all.calls,
+                    f"{what}: K1 ran {k1_int4.calls} of {k1_all.calls} "
+                    f"calls in int4 mode")
+        # a captured step calls K1 once a layer at its capture, and each
+        # replay launches it once a layer
+        want = k1_eager.calls + replays.calls * cfg.whisper.decoder_layers
+        require(replays.calls > 0
+                and stats["decode_cross_attention"][0] == want,
+                f"{what}: K1 launched {stats['decode_cross_attention'][0]} "
+                f"times, not {k1_eager.calls} eager calls + "
+                f"{replays.calls} replays x {cfg.whisper.decoder_layers} "
+                f"layers = {want}")
         if threshold < 1e-3:
             require(sum(redo.kept) == 8,
                     f"{what}: the fallback re-decoded {sum(redo.kept)} of 8 "
@@ -3206,6 +3260,8 @@ def main() -> int:
     pipe.analyze(clip, 16000)
     torch.cuda.synchronize()
     log(f"analyze (same clip, second call): {time.perf_counter() - t0:.3f} s")
+    check_replayed_k1(torch, _build, lambda: pipe.analyze(clip, 16000),
+                      "analyze (whisper-tiny, bf16, 12 s clip)")
 
     # 6. the HTTP server
     check_server(pipe, synth_clip)

@@ -368,6 +368,39 @@ def test_k2_partials_merge_to_the_unsharded_tokens(cuda, t, b, d, dtype,
     assert torch.equal(dl.merge_partials(plain)[ok], whole[ok])
 
 
+def test_k2_float32_from_two_threads_on_one_stream(cuda):
+    """The float32 route launches two passes; two threads calling it at
+    once on the one current stream may launch between each other's
+    passes, so each call's partials are its own: every token is the one
+    that call gives alone."""
+    import threading
+    b, v, d = 8, 51865, 384
+    cases = [_k2_case(cuda, b, v, d, torch.float32, seed) for seed in (5, 6)]
+    want = [dl.fused_greedy_step(h, t, a, seen=s, penalty=1.15, ban=n)
+            for h, t, a, s, n in cases]
+    assert not torch.equal(want[0], want[1])
+    got, errors = [[], []], []
+
+    def run(i):
+        try:
+            h, t, a, s, n = cases[i]
+            for _ in range(300):
+                got[i].append(dl.fused_greedy_step(h, t, a, seen=s,
+                                                   penalty=1.15, ban=n))
+        except Exception as e:      # reported below, in the test's thread
+            errors.append(e)
+    threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    torch.cuda.synchronize()
+    wrong = [(i, n) for i in (0, 1) for n, x in enumerate(got[i])
+             if not torch.equal(x, want[i])]
+    assert not wrong, f"{len(wrong)} of 600 calls wrong"
+
+
 def test_k2_merge_counter_resets_itself(cuda):
     # the last block of each row group merges and zeroes its counter: many
     # calls in a row on one stream, and calls on a second stream (its own
@@ -667,6 +700,272 @@ def test_generate_on_cuda_matches_cpu(cuda, mode):
     assert torch.equal(gpu["tokens"].cpu(), cpu["tokens"])
     assert torch.equal(gpu["lengths"].cpu(), cpu["lengths"])
     assert (gpu["hiddens"].cpu() - cpu["hiddens"]).abs().max() <= 1e-4
+
+
+# --------------------------------------------------------------------------
+# the decoder step captured in a CUDA graph
+# --------------------------------------------------------------------------
+
+# the ids an "eos" case lets the decode choose: two words and EOS; the
+# 3-gram ban uses up their trigrams within a few steps and leaves EOS
+_EOS_WORDS = (300, 301)
+
+
+@pytest.fixture(scope="module")
+def tiny_whisper():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU)")
+    w = WhisperConfig.tiny()
+    cfg = EmotionWhisperConfig(whisper=w, num_emotion_classes=4)
+    params = cp.to_device(
+        cp.init(cfg, torch.Generator().manual_seed(0))["whisper"], "cuda")
+    mel_in = torch.randn((4, 2 * w.max_source_positions, w.n_mels),
+                         generator=torch.Generator().manual_seed(1))
+    # rows of distinct levels, so that the rows' decodes differ
+    mel_in = (mel_in * torch.tensor([0.1, 1.0, 3.0, 1.0])[:, None, None]
+              + torch.tensor([0.0, 1.0, -1.0, 2.0])[:, None, None])
+    return w, params, mel_in
+
+
+def _graph_case(case):
+    """(DecodeConfig, suppress_ids) of a captured-decode case."""
+    dcfg = DecodeConfig(max_new_tokens=24, repetition_penalty=1.15,
+                        no_repeat_ngram_size=3)
+    suppress = ()
+    if case == "eos":
+        keep = set(_EOS_WORDS) | {WhisperConfig.tiny().eos_token_id}
+        suppress = tuple(i for i in range(WhisperConfig.tiny().vocab_size)
+                         if i not in keep)
+    elif case == "int8":
+        dcfg = dcfg.replace(kv_quant="int8", self_kv_min=0)
+    elif case == "xla":
+        dcfg = dcfg.replace(step_attn="xla")
+    elif case == "sampled":
+        dcfg = dcfg.replace(temperature=0.7)
+    return dcfg, suppress
+
+
+def _traced_generate(params, w, dcfg, enc, suppress, seed):
+    from audio_transformers_tpu_torch.core import tracing
+    tracing.disable()
+    tracing.drain()
+    before = {k: s.launches for k, s in _build.STATS.items()}
+    tracing.enable()
+    try:
+        out = dec.generate(params, w, dcfg, enc, suppress_ids=suppress,
+                           generator=_gen(seed))
+    finally:
+        tracing.disable()
+    torch.cuda.synchronize()
+    launched = {k: s.launches - before[k] for k, s in _build.STATS.items()}
+    return out, tracing.drain(), launched
+
+
+@pytest.mark.parametrize("case", ["bf16", "eos", "int8", "xla", "sampled"])
+def test_captured_decode_matches_the_eager_loop(cuda, tiny_whisper, case,
+                                                monkeypatch):
+    w, params, mel_in = tiny_whisper
+    dcfg, suppress = _graph_case(case)
+    p = cp.map_tensors(params, lambda t: t.to(torch.bfloat16))
+    enc = wm.encode(p, w, mel_in.to(cuda, torch.bfloat16))
+    graph, rec, launched = _traced_generate(p, w, dcfg, enc, suppress, 5)
+    monkeypatch.setattr(dec, "_capture_allowed", lambda enc, group: False)
+    eager, rec_eager, _ = _traced_generate(p, w, dcfg, enc, suppress, 5)
+
+    assert torch.equal(graph["tokens"], eager["tokens"])
+    assert torch.equal(graph["lengths"], eager["lengths"])
+    err = (graph["hiddens"].float() - eager["hiddens"].float()).abs().max()
+    assert err <= 1e-5 * eager["hiddens"].float().abs().max()
+
+    steps = rec.counter("decode.steps")
+    assert rec.counter("decode.graph_captures") == 1
+    assert rec.counter("decode.graph_replays") == steps - 1 > 0
+    assert len(rec.of("decode.capture")) == 1
+    assert rec_eager.counter("decode.steps") == steps
+    assert rec_eager.counter("decode.graph_captures") == 0
+    assert rec_eager.counter("decode.graph_replays") == 0
+    k1 = 0 if case == "xla" else w.decoder_layers * steps
+    assert launched["decode_cross_attention"] == k1
+    length = graph["tokens"].shape[1]
+    if case == "eos":
+        # rows end early and the loop leaves early: positions never fed
+        # keep zero hidden states
+        assert (graph["lengths"] < length).all()
+        assert graph["lengths"].min() < graph["lengths"].max()
+        assert steps < length
+        assert graph["hiddens"][:, steps:].abs().max() == 0
+        assert graph["hiddens"][:, steps - 1].abs().max() > 0
+
+
+def test_captured_decode_reads_weights_updated_in_place(cuda, tiny_whisper,
+                                                        monkeypatch):
+    """Nothing of a capture outlives its call: weights changed in place
+    between two calls (evaluation during training) are what the second
+    call's graph reads."""
+    w, params, mel_in = tiny_whisper
+    p = cp.map_tensors(params, lambda t: t.clone())
+    enc = wm.encode(p, w, mel_in.to(cuda))
+    dcfg, _ = _graph_case("bf16")
+    first = dec.generate(p, w, dcfg, enc)
+    with torch.no_grad():
+        for bp in p["decoder"]["blocks"]:
+            bp["fc2"]["w"].mul_(1.5)
+    graph = dec.generate(p, w, dcfg, enc)
+    monkeypatch.setattr(dec, "_capture_allowed", lambda enc, group: False)
+    eager = dec.generate(p, w, dcfg, enc)
+    assert not torch.equal(first["hiddens"], eager["hiddens"])
+    assert torch.equal(graph["tokens"], eager["tokens"])
+    err = (graph["hiddens"] - eager["hiddens"]).abs().max()
+    assert err <= 1e-5 * eager["hiddens"].abs().max()
+
+
+def test_captured_decodes_reuse_their_memory(cuda, tiny_whisper):
+    """A capture takes the memory pool of a graph whose decode has ended,
+    so repeated decodes hold no more memory than the first."""
+    w, params, mel_in = tiny_whisper
+    enc = wm.encode(params, w, mel_in.to(cuda))
+    dcfg, _ = _graph_case("bf16")
+    reserved = []
+    for _ in range(4):
+        dec.generate(params, w, dcfg, enc)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+    assert reserved[1] == reserved[2] == reserved[3], reserved
+
+
+def test_captured_decode_syncs_once_a_step(cuda, tiny_whisper):
+    """Inside the loop the one host sync a step is the `finished` read
+    (`decode.sync`): none in the replayed blocks or the token's work."""
+    import warnings
+
+    from audio_transformers_tpu_torch.core import tracing
+    w, params, mel_in = tiny_whisper
+    enc = wm.encode(params, w, mel_in.to(cuda))
+    dcfg, _ = _graph_case("bf16")
+    dec.generate(params, w, dcfg, enc)               # warm
+    torch.cuda.synchronize()
+    tracing.drain()
+    at = []                  # the open spans at each sync, innermost last
+
+    def note(message, *args, **kwargs):
+        if "synchroniz" in str(message):
+            at.append(tuple(s.name for s in tracing._stack()))
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        tracing.enable()
+        try:
+            dec.generate(params, w, dcfg, enc)
+        finally:
+            tracing.disable()
+            torch.cuda.set_sync_debug_mode("default")
+    rec = tracing.drain()
+    in_loop = [names for names in at if "decode.step" in names]
+    assert [names[-1] for names in in_loop] == ["decode.sync"] * len(in_loop)
+    assert len(in_loop) == len(rec.of("decode.step")) > 0
+    assert not [names for names in at if "decode.blocks" in names]
+
+
+@pytest.mark.parametrize("streams", ["shared", "own"])
+def test_captured_decodes_in_two_threads(cuda, tiny_whisper, monkeypatch,
+                                         streams):
+    """Two threads decoding at once (the threaded HTTP server without its
+    micro-batcher), 9 decodes each in each of 3 rounds, on the one current
+    stream or each on a new stream (54 in all, more than torch's pool
+    holds, so that every stream of the pool comes round): every thread
+    captures and replays its own step, a capture takes the pool of another
+    thread's ended graph, and every tokens and hidden states are those of
+    the eager loop."""
+    import threading
+    w, params, mel_in = tiny_whisper
+    dcfg, _ = _graph_case("bf16")
+    encs = [wm.encode(params, w, mel_in[i:i + 2].to(cuda)) for i in (0, 2)]
+    monkeypatch.setattr(dec, "_capture_allowed", lambda enc, group: False)
+    eager = [dec.generate(params, w, dcfg, enc) for enc in encs]
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    wrong, errors = [], []
+
+    def run(i, outs):
+        try:
+            for _ in range(9):
+                stream = (torch.cuda.Stream() if streams == "own"
+                          else torch.cuda.current_stream())
+                with torch.cuda.stream(stream):
+                    outs.append(dec.generate(params, w, dcfg, encs[i]))
+        except Exception as e:      # reported below, in the test's thread
+            errors.append(e)
+    for r in range(3):
+        outs = [[], []]
+        threads = [threading.Thread(target=run, args=(i, outs[i]))
+                   for i in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert not errors, errors
+        torch.cuda.synchronize()
+        for i, want in enumerate(eager):
+            for n, got in enumerate(outs[i]):
+                err = (got["hiddens"] - want["hiddens"]).abs().max()
+                if (not torch.equal(got["tokens"], want["tokens"])
+                        or err > 1e-5 * want["hiddens"].abs().max()):
+                    wrong.append((r, i, n))
+    assert not wrong, f"{len(wrong)} of 54 decodes wrong: {wrong}"
+
+
+def test_captured_decodes_around_empty_cache(cuda, tiny_whisper):
+    """A capture takes the pool of an ended decode's graph, which is kept
+    alive for it: given the pool of a destroyed graph after
+    `torch.cuda.empty_cache()`, torch's host allocator fails an internal
+    assert (`use_count > 0`)."""
+    w, params, mel_in = tiny_whisper
+    enc = wm.encode(params, w, mel_in.to(cuda))
+    dcfg, _ = _graph_case("bf16")
+    outs = []
+    for _ in range(3):
+        outs.append(dec.generate(params, w, dcfg, enc))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    for got in outs[1:]:
+        assert torch.equal(got["tokens"], outs[0]["tokens"])
+        assert torch.equal(got["hiddens"], outs[0]["hiddens"])
+
+
+@pytest.mark.parametrize("fault", ["raise", "sync"])
+def test_a_capture_that_fails_leaves_later_decodes_whole(cuda, tiny_whisper,
+                                                         monkeypatch, fault):
+    """A capture that raises ("raise": an error in the step's code; "sync":
+    a host sync, which invalidates the capture) fails its decode, and the
+    decodes after it capture and replay as ever, one taking the pool that
+    the failed capture had taken."""
+    w, params, mel_in = tiny_whisper
+    enc = wm.encode(params, w, mel_in.to(cuda))
+    dcfg, _ = _graph_case("bf16")
+    dec.generate(params, w, dcfg, enc)     # an ended graph, whose pool the
+    torch.cuda.synchronize()               # failing capture takes
+    body = wm._decoder_step
+
+    def failing(*args, **kwargs):
+        out = body(*args, **kwargs)
+        if torch.cuda.is_current_stream_capturing():
+            if fault == "sync":
+                out.sum().item()
+            raise RuntimeError("a planted fault in the capture")
+        return out
+    monkeypatch.setattr(wm, "_decoder_step", failing)
+    with pytest.raises(RuntimeError):
+        dec.generate(params, w, dcfg, enc)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    graph = [dec.generate(params, w, dcfg, enc) for _ in range(3)]
+    monkeypatch.setattr(dec, "_capture_allowed", lambda enc, group: False)
+    eager = dec.generate(params, w, dcfg, enc)
+    for got in graph:
+        assert torch.equal(got["tokens"], eager["tokens"])
+        err = (got["hiddens"] - eager["hiddens"]).abs().max()
+        assert err <= 1e-5 * eager["hiddens"].abs().max()
 
 
 # --------------------------------------------------------------------------

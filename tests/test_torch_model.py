@@ -126,7 +126,10 @@ def test_int4_cross_and_int8_self_cache_match_jax(pair):
             torch.from_numpy(enc[:, :-1]), quant="int4")
     want = jwm.init_cache(W, 2, max_len=9, quant="int8")
     got = wm.init_cache(W, 2, max_len=9, quant="int8")
-    assert sorted(got) == sorted(want) and got["index"] == 0
+    # the port keeps the reference's device index twice: a host int that
+    # the loops read, and "pos", the 0-d tensor that the step reads
+    assert sorted(got) == sorted([*want, "pos"]) and got["index"] == 0
+    assert got["pos"].shape == () and int(got["pos"]) == 0
     for name in ("k", "v", "k_scale", "v_scale"):
         assert len(got[name]) == len(want[name]) == W.decoder_layers
         for g, w in zip(got[name], want[name]):
