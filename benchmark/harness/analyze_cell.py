@@ -16,10 +16,10 @@ import time
 
 import torch
 
-from benchmark.harness import program, traffic, weights
+from benchmark.harness import program, traffic
 from benchmark.harness.checks import rel_fro
+from benchmark.harness.ranks import SINGLE, Ranks
 from benchmark.harness.tracing import DeviceTrace, Spans
-from benchmark.reference import whisper as ref
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -28,18 +28,22 @@ class AnalyzeCell:
     kind = "analyze"
 
     def __init__(self, dims, mix: dict, seed: int, device, spans: Spans,
-                 traced: bool):
+                 traced: bool, *, family, ranks: Ranks = SINGLE):
         from audio_transformers_tpu_torch.infer.pipeline import \
             EmotionWhisperPipeline
 
+        if ranks.world > 1:
+            raise SystemExit("an analyze cell runs on one card")
         self.dims, self.mix, self.seed, self.device = dims, mix, seed, device
+        self.family = family
         self.spans = spans
         self.batch = mix["batch"]
         self.dtype = DTYPES[mix["compute_dtype"]]
         self.rows = sorted(random.Random(traffic.batch_seed(seed, 0, 3)).sample(
             range(self.batch), mix["check_rows"]))
-        cfg, mel_cfg = program.configs(dims)
-        params = weights.tree(weights.make(dims, seed, device, self.dtype))
+        cfg, mel_cfg = family.port_config(dims)
+        params = family.port_tree(family.make_weights(dims, seed, device,
+                                                      self.dtype))
         self.pipe = EmotionWhisperPipeline(
             params, cfg, mel_cfg, device=device, compute_dtype=self.dtype,
             suppress_ids=dims.suppress, kv_quant=mix["kv_quant"])
@@ -177,8 +181,9 @@ class AnalyzeCell:
     def reference(self, precision: str = "float32") -> dict:
         """The reference's readings of the sampled requests."""
         d, mix = self.dims, self.mix
-        w = {n: t.float() for n, t in
-             weights.make(d, self.seed, self.device, self.dtype).items()}
+        ref = self.family.reference
+        w = {n: t.float() for n, t in self.family.make_weights(
+            d, self.seed, self.device, self.dtype).items()}
         model = ref.Whisper(d, w, precision)
         picks, lengths = self._sample()
         out = {"picks": picks, "mel": [], "enc": [], "cross": [],
@@ -214,7 +219,7 @@ class AnalyzeCell:
         for i, (call, row) in enumerate(r["picks"]):
             toks = self.tokens[call][row].tolist()
             length = min(r["lengths"][call][row], self._fed(self.tokens[call]))
-            gaps += ref.token_gaps(
+            gaps += self.family.reference.token_gaps(
                 r["logits"][i], toks, length, d, self.prompt_len,
                 mix["repetition_penalty"], mix["no_repeat_ngram"],
                 chosen_logits=None if control is None

@@ -51,7 +51,22 @@ def token_altered(spans, kind):
     spans.hook(decode_logits, "fused_greedy_step", step)
 
 
+def no_exchange(spans, kind):
+    """A data-parallel train step that leaves out the exchange between the
+    cards: each rank steps on its own rows' gradient."""
+    from audio_transformers_tpu_torch.train import whisper_emotion as we
+    spans.hook(we, "average_gradients", lambda orig: lambda *a, **k: None)
+
+
 PLANTS = {"state_unchanged": state_unchanged, "half_batch": half_batch,
-          "token_altered": token_altered}
+          "token_altered": token_altered, "no_exchange": no_exchange}
 FOR_KIND = {"train": ("state_unchanged", "half_batch"),
             "analyze": ("token_altered",)}
+# what a cell of a kind can have besides, on several cards
+ACROSS_CARDS = {"train": ("no_exchange",)}
+
+
+def for_cell(kind: str, chips: int) -> tuple:
+    """The faults a cell of `kind` on `chips` cards can have."""
+    return FOR_KIND.get(kind, ()) + (ACROSS_CARDS.get(kind, ())
+                                     if chips > 1 else ())

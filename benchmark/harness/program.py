@@ -40,6 +40,26 @@ def modules():
             "model": model, "whisper_emotion": whisper_emotion}
 
 
+def join(world: int, rank: int, coordinator: str, device):
+    """This process as rank `rank` of `world` in the program's process
+    group (NCCL on the card, gloo on the CPU), pinned to card `rank`;
+    returns the program's data-parallel mesh over the group."""
+    import torch
+
+    from audio_transformers_tpu_torch.parallel import distributed, mesh
+    device = torch.device(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", rank)
+    distributed.initialize_if_multihost(coordinator, world, rank,
+                                        device=device)
+    return mesh.build_mesh((("data", world),))
+
+
+def leave() -> None:
+    from audio_transformers_tpu_torch.parallel import distributed
+    distributed.shutdown()
+
+
 def launches() -> dict:
     """The program's kernel launch counters (read, never written)."""
     from audio_transformers_tpu_torch.ops import _build

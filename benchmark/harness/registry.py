@@ -4,8 +4,11 @@ A cell (`workloads[]`) names a configuration (`configs/<file>`, from the
 `configs[]` entry), a traffic mix (`workloads/<traffic>.json`), its
 correctness limits (`limits/<cell>.json`) and, through the `per_layer`
 entries that list it (or list no cells), its per-layer metrics, one
-module each (`metrics/<name>.py`). A later cell, mix or metric is a new
-file and a new entry; no code changes.
+module each (`metrics/<name>.py`). The configuration's `model_type`
+picks its family (`harness/families/<model_type>.py`) and the mix's
+`kind` its path (`harness/<kind>_cell.py`, the class whose `kind` it
+is). A later cell, mix, metric, family or kind is a new file and a new
+entry; no code changes.
 """
 
 from __future__ import annotations
@@ -51,6 +54,46 @@ def load_metric(path: str) -> ModuleType:
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def code(sub: str, stem: str, bench_dir: Optional[str] = None
+         ) -> ModuleType:
+    """The module `<sub>/<stem>.py` of the benchmark: from `bench_dir`
+    where it holds one, else from this harness's own folder (imported by
+    its package name there)."""
+    rel = os.path.join(sub, stem + ".py")
+    if bench_dir and os.path.exists(os.path.join(bench_dir, rel)) and \
+            not os.path.samefile(bench_dir, HERE):
+        return load_metric(os.path.join(bench_dir, rel))
+    if not os.path.exists(os.path.join(HERE, rel)):
+        raise SystemExit(f"no {rel} in the benchmark")
+    return importlib.import_module(
+        "benchmark." + sub.replace("/", ".") + "." + stem)
+
+
+def family(model_type: str, bench_dir: Optional[str] = None) -> ModuleType:
+    """The family module of a configuration's `model_type`."""
+    return code("harness/families", model_type, bench_dir)
+
+
+def load_config(path: str, bench_dir: Optional[str] = None):
+    """(family module, dims) of the configuration file `path`."""
+    with open(path) as f:
+        raw = json.load(f)
+    fam = family(raw["model_type"], bench_dir)
+    return fam, fam.dims(raw)
+
+
+def kind_class(kind: str, bench_dir: Optional[str] = None) -> type:
+    """The cell class of a traffic mix's `kind`: the class of
+    `harness/<kind>_cell.py` whose `kind` attribute it is."""
+    mod = code("harness", kind + "_cell", bench_dir)
+    found = [c for c in vars(mod).values()
+             if isinstance(c, type) and getattr(c, "kind", None) == kind]
+    if len(found) != 1:
+        raise SystemExit(f"harness/{kind}_cell.py must hold one class "
+                         f"whose kind is {kind!r}")
+    return found[0]
 
 
 def find(workload: str, root: str = ROOT,

@@ -35,6 +35,13 @@ def batch_seed(seed: int, index: int, stream: int = 0) -> int:
         % (2 ** 62)
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank `rank`'s rows in a cell on several cards: the
+    run's seed on rank 0 (whose rows are then a one-card cell's), a seed
+    drawn from it on the others."""
+    return int(seed) if rank == 0 else batch_seed(seed, rank, 5)
+
+
 def _spread(lo: float, hi: float, n: int, g: torch.Generator) -> torch.Tensor:
     """n values evenly spread over [lo, hi], in an order drawn from g."""
     vals = lo + (hi - lo) * (torch.arange(n, dtype=torch.float64) + 0.5) / n

@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -227,8 +228,8 @@ def rows_per_block(dims: Dims, budget_bytes: float = 2.0e9) -> int:
 def train_steps(dims: Dims, weights: Dict[str, Tensor], batches: Sequence,
                 trainable: Sequence[str], *, lr: float, betas=(0.9, 0.999),
                 eps: float = 1e-8, weight_decay: float = 0.0,
-                emotion_weight: float = 0.5, precision: str = "float32"
-                ) -> dict:
+                emotion_weight: float = 0.5, precision: str = "float32",
+                group=None) -> dict:
     """AdamW steps over `batches` ({"waveform", "labels",
     "emotion_labels"}) from float32 `weights` (updated in place).
 
@@ -237,7 +238,13 @@ def train_steps(dims: Dims, weights: Dict[str, Tensor], batches: Sequence,
     gradient is summed over blocks of rows with the batch's global
     normalisation (the token mean over the whole batch's non-pad
     targets), each block's decoder and encoder blocks recomputed in the
-    backward."""
+    backward.
+
+    With a `torch.distributed` process `group`, each process holds its
+    rows of the batch (an equal share) and the same weights: the token
+    count and the rows are summed over the group before the
+    normalisation, and each step's loss and float32 gradients after the
+    blocks, so every process takes the global batch's step."""
     model = Whisper(dims, weights, precision, remat=True)
     params = {n: weights[n] for n in trainable}
     start = {n: p.detach().clone() for n, p in params.items()}
@@ -247,14 +254,18 @@ def train_steps(dims: Dims, weights: Dict[str, Tensor], batches: Sequence,
         p.requires_grad_(True)
     out = {"loss": [], "grad_norm": {}, "change": {}}
     rows = rows_per_block(dims)
+    world = 1 if group is None else dist.get_world_size(group)
     b1, b2 = betas
     with exact_float32():
         for step, batch in enumerate(batches, start=1):
             labels = batch["labels"]
             targets = labels[:, 1:]
             mask = (targets != dims.pad_id).float()
-            count = mask.sum().clamp(min=1.0)
+            count = mask.sum()
             n = labels.shape[0]
+            if group is not None:
+                dist.all_reduce(count, group=group)
+            count = count.clamp(min=1.0)
             total = 0.0
             for lo in range(0, n, rows):
                 sl = slice(lo, min(lo + rows, n))
@@ -266,9 +277,14 @@ def train_steps(dims: Dims, weights: Dict[str, Tensor], batches: Sequence,
                 emo = F.cross_entropy(model.emotion_logits(hidden),
                                       batch["emotion_labels"][sl],
                                       reduction="sum")
-                loss = (tok * mask[sl]).sum() / count + emotion_weight * emo / n
+                loss = (tok * mask[sl]).sum() / count \
+                    + emotion_weight * emo / (n * world)
                 loss.backward()
                 total += float(loss.detach())
+            if group is not None:
+                total = _summed(total, group, count.device)
+                for p in params.values():
+                    dist.all_reduce(p.grad, group=group)
             out["loss"].append(total)
             with torch.no_grad():
                 for name, p in params.items():
@@ -287,6 +303,12 @@ def train_steps(dims: Dims, weights: Dict[str, Tensor], batches: Sequence,
             out["change"][name] = float((p - start[name]).norm())
             p.requires_grad_(False)
     return out
+
+
+def _summed(value: float, group, device) -> float:
+    t = torch.tensor([value], dtype=torch.float64, device=device)
+    dist.all_reduce(t, group=group)
+    return float(t[0])
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@
 With --trace 0 the line holds the cell's end-to-end metrics, with
 --trace 1 its per-layer metrics and the device's busy time. It runs on
 the card it is started on and exits non-zero, printing no result, when
-there is none (or fewer than the cell needs).
+there is none (or fewer than the cell needs). A cell on n > 1 cards runs
+as n processes, rank r on card r (`harness/ranks.py`); this process
+starts them, waits for them and prints rank 0's result.
 """
 
 import time
@@ -43,8 +45,20 @@ def main() -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
-    result = cell.run(args.workload, args.seed, args.seconds,
-                      bool(args.trace), device="cuda:0", t_start=T_START)
+    if need == 1:
+        result = cell.run(args.workload, args.seed, args.seconds,
+                          bool(args.trace), device="cuda:0", t_start=T_START)
+    else:
+        result = cell.run_across(
+            need, workload=args.workload, seed=args.seed,
+            seconds=args.seconds, trace=bool(args.trace), device="cuda",
+            t_start=T_START)
+        if result is None:
+            return 1
+        found = cell.banned_modules()
+        if found:
+            print(f"loaded: {found}", file=sys.stderr)
+            return 1
     cell.emit(result)
     return 0
 

@@ -11,7 +11,7 @@ import shutil
 from benchmark.harness import registry
 
 TEST_CONFIG = {
-    "source": "test size", "d_model": 64, "encoder_layers": 2,
+    "source": "test size", "model_type": "whisper", "d_model": 64, "encoder_layers": 2,
     "decoder_layers": 2, "encoder_attention_heads": 2,
     "decoder_attention_heads": 2, "encoder_ffn_dim": 128,
     "decoder_ffn_dim": 128, "num_mel_bins": 80, "vocab_size": 1024,
@@ -64,7 +64,8 @@ def make(tmp: str, train_mix: dict = TRAIN_MIX,
         {"name": "test-analyze", "config": "test", "traffic": "t-analyze",
          "chips": 1, "why": "CPU tests"}]
     rename = {"tiny-train-b64": "test-train", "large-v3-train-b16": None,
-              "large-v3-offline-b64": "test-analyze"}
+              "large-v3-offline-b64": "test-analyze",
+              "large-v3-train-dp4": None}
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:
             m["workloads"] = [rename[w] for w in m["workloads"]

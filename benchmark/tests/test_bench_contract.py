@@ -88,15 +88,36 @@ def test_every_cell_reports_what_the_contract_asks():
         assert c.per_layer
 
 
+WIDTHS = ("d_model", "encoder_layers", "decoder_layers",
+          "encoder_attention_heads", "encoder_ffn_dim", "num_mel_bins",
+          "vocab_size")
+
+
 def test_config_files_hold_the_published_widths():
-    pub = {"emotion-whisper-tiny": (384, 4, 4, 6, 1536, 80, 51865),
-           "emotion-whisper-large-v3": (1280, 32, 32, 20, 5120, 128, 51866)}
+    """Each configuration file holds, unchanged, every width its family
+    module lists as published for its source, and its family parses it."""
     for c in BENCH["configs"]:
         with open(os.path.join(registry.ROOT, c["file"])) as f:
             raw = json.load(f)
-        got = tuple(raw[k] for k in (
-            "d_model", "encoder_layers", "decoder_layers",
-            "encoder_attention_heads", "encoder_ffn_dim", "num_mel_bins",
-            "vocab_size"))
-        assert got == pub[c["name"]]
+        family = registry.family(raw["model_type"])
+        published = family.PUBLISHED[c["source"]]
+        for key, value in published.items():
+            assert raw[key] == value, (c["name"], key)
+            assert key not in c["reduced"], (c["name"], key)
+        assert family.dims(raw) is not None
+
+
+def test_the_whisper_family_lists_the_published_widths():
+    pub = {"emotion-whisper-tiny": (384, 4, 4, 6, 1536, 80, 51865),
+           "emotion-whisper-large-v3": (1280, 32, 32, 20, 5120, 128, 51866)}
+    whisper = registry.family("whisper")
+    for c in BENCH["configs"]:
+        with open(os.path.join(registry.ROOT, c["file"])) as f:
+            raw = json.load(f)
+        if raw["model_type"] != "whisper":
+            continue
+        published = whisper.PUBLISHED[c["source"]]
+        assert tuple(published[k] for k in WIDTHS) == pub[c["name"]]
+        assert tuple(raw[k] for k in WIDTHS) == pub[c["name"]]
+        assert published["max_source_positions"] == 1500
         assert raw["max_source_positions"] == 1500
