@@ -10,6 +10,11 @@ The port of the reference package's `cli/infer.py`, plus --device
 directory (either package's `export_hf_dir`, or the reference's
 save_pretrained output); without it the weights are seeded random
 whisper-tiny. With no --audio it analyzes a synthesized 12 s clip.
+
+--model_type grin_qwen2_vl runs Uni-MoE-2.0-Omni's speech understanding instead (`infer/omni.py`):
+the clip and --prompt_ids in, --max_new_tokens greedy ids out. Its
+published checkpoint does not load yet: the weights are seeded, at the
+published sizes (53.6 GB in bf16 on the card).
 """
 
 from __future__ import annotations
@@ -34,7 +39,29 @@ def parse_args(argv=None):
                    help="beam-search width (1 = greedy)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cpu)")
+    p.add_argument("--model_type", default="whisper",
+                   choices=["whisper", "grin_qwen2_vl"],
+                   help="the model family")
+    p.add_argument("--prompt_ids", default="1,2,3,4,5,6,7,8,9,10,11,12",
+                   help="grin_qwen2_vl: comma-separated prompt ids")
+    p.add_argument("--max_new_tokens", type=int, default=32)
     return p.parse_args(argv)
+
+
+def run_omni(args, wav, sr):
+    """Uni-MoE-2.0-Omni on the clip: seeded weights, greedy ids."""
+    from audio_transformers_tpu_torch.core.config import OmniConfig
+    from audio_transformers_tpu_torch.infer.omni import OmniPipeline, seeded
+    if args.model_path:
+        raise SystemExit("grin_qwen2_vl: loading a checkpoint is not "
+                         "supported yet; run without --model_path")
+    cfg = OmniConfig()
+    pipe = OmniPipeline(seeded(cfg), cfg, device=args.device)
+    prompt = [int(t) for t in args.prompt_ids.split(",") if t]
+    result = pipe.analyze(wav, sr, prompt, args.max_new_tokens)
+    print(json.dumps(result) if args.json else
+          f"\n{result['audio_s']:.1f} s of audio -> ids {result['tokens']}")
+    return result
 
 
 def main(argv=None):
@@ -45,15 +72,17 @@ def main(argv=None):
     from audio_transformers_tpu_torch.utils.audio import (read_audio,
                                                           synth_clip)
 
-    pipe = load_pipeline(args.model_path,
-                         tokenizer=get_tokenizer(args.tokenizer),
-                         kv_quant=args.kv_quant, num_beams=args.num_beams,
-                         device=args.device)
     if args.audio:
         wav, sr = read_audio(args.audio)
     else:
         print("no --audio given; running synthesized self-test clip")
         wav, sr = synth_clip(12.0, 16000), 16000
+    if args.model_type == "grin_qwen2_vl":
+        return run_omni(args, wav, sr)
+    pipe = load_pipeline(args.model_path,
+                         tokenizer=get_tokenizer(args.tokenizer),
+                         kv_quant=args.kv_quant, num_beams=args.num_beams,
+                         device=args.device)
 
     result = pipe.analyze(wav, sr, segment_duration=args.segment_duration)
     if args.json:

@@ -266,6 +266,73 @@ class EmotionWhisperConfig(_ConfigBase):
     num_emotion_classes: int = 10
 
 
+@dataclass(frozen=True)
+class UniMoEConfig(_ConfigBase):
+    """The language model of Uni-MoE-2.0-Omni (`model_type`
+    grin_qwen2_vl): a Qwen2-style decoder (GQA with q/k/v bias, M-RoPE,
+    RMSNorm, an untied head) whose every FFN is a dynamic-capacity MoE:
+    `num_experts` routed SwiGLU experts of `expert_size`, `null_experts`
+    slots that compute nothing, `shared_experts` always-on SwiGLU experts
+    of `shared_size`, a float32 router and top-p routing at `top_p`
+    capped at `top_k` slots, no token dropping. Defaults are the published
+    config.json (huggingface.co/HIT-TMG/Uni-MoE-2.0-Omni)."""
+
+    vocab_size: int = 152064
+    hidden_size: int = 3584
+    num_layers: int = 28
+    num_heads: int = 28
+    num_kv_heads: int = 4
+    rope_theta: float = 1e6
+    mrope_section: Tuple[int, ...] = (16, 24, 24)
+    rms_norm_eps: float = 1e-6
+    num_experts: int = 4              # mlp_dynamic_expert_num
+    null_experts: int = 1             # mlp_dynamic_null_expert_num
+    expert_size: int = 18944          # dynamic_intermediate_size
+    shared_experts: int = 2           # mlp_fixed_expert_num
+    shared_size: int = 2368           # shared_intermediate_size
+    top_p: float = 0.7                # mlp_dynamic_top_p
+    top_k: int = 2                    # mlp_dynamic_top_k
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def slots(self) -> int:
+        """Router outputs: the routed experts, then the null slots."""
+        return self.num_experts + self.null_experts
+
+    @staticmethod
+    def test() -> "UniMoEConfig":
+        """A toy size for the CPU tests: hidden 64, 4/2 heads of 16,
+        sections (2, 3, 3), 2 layers, 4 + 1 experts, 2 shared, vocab
+        300."""
+        return UniMoEConfig(vocab_size=300, hidden_size=64, num_layers=2,
+                            num_heads=4, num_kv_heads=2,
+                            mrope_section=(2, 3, 3), expert_size=96,
+                            shared_size=32)
+
+
+@dataclass(frozen=True)
+class OmniConfig(_ConfigBase):
+    """Uni-MoE-2.0-Omni's speech-understanding path: the whisper encoder
+    (`whisper`, its decoder unused), a linear projector from
+    `whisper.d_model` to the language model's width after pooling each
+    window's encoder states to `audio_tokens` frames, and the language
+    model (`llm`)."""
+
+    whisper: WhisperConfig = field(default_factory=WhisperConfig.large_v3)
+    llm: UniMoEConfig = field(default_factory=UniMoEConfig)
+    audio_tokens: int = 200           # whisper_query_tokens_size
+    model_type: str = "grin_qwen2_vl"
+
+    @staticmethod
+    def test() -> "OmniConfig":
+        """The CPU tests' toy model: a 2-layer test-size encoder."""
+        return OmniConfig(whisper=WhisperConfig.test(),
+                          llm=UniMoEConfig.test(), audio_tokens=8)
+
+
 # ---------------------------------------------------------------------------
 # Decoding
 # ---------------------------------------------------------------------------

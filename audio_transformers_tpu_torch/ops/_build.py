@@ -46,7 +46,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 KERNEL_SOURCES = ("decode_attention", "decode_logits", "decode_logits_sm90",
                   "mel", "flash_attention", "flash_attention_sm90",
-                  "permute")
+                  "permute", "expert_gemm_sm90")
 
 
 @dataclass
@@ -64,6 +64,8 @@ STATS: Dict[str, KernelStats] = {
     "flash_attention_bwd_dq": KernelStats(),
     "flash_attention_bwd_dkv": KernelStats(),
     "permute_rows": KernelStats(),
+    "expert_gate_up": KernelStats(),
+    "expert_down": KernelStats(),
 }
 
 

@@ -213,7 +213,17 @@ each raising on failure:
      rule; the decode's ms per step for each combination, in two turns;
   32. scripts/parity_rehearsal_torch.py at full width on 40 clips for 2
      epochs (bf16): the training and evaluation kernels launched, the
-     train and val losses falling, the summary and eval files written.
+     train and val losses falling, the summary and eval files written;
+  33. K6, the grouped SwiGLU expert GEMM of Uni-MoE-2.0-Omni's routed
+     experts (D 3584, F 18944, 4 experts, bf16), at the omni cell's
+     shapes: a decode step's 64 slots on one, two and four experts and a
+     prefill's 31,248 slots with 18,900 routed: against its plain version
+     on the same inputs, the slots past the routed ones zero, two
+     launches bit-equal, one launch of each half a call (counter) and two
+     K6 kernels a call (profiler), its times beside the plain version's,
+     one cuBLAS chain per active expert and its bound; then its launches
+     in `OmniPipeline.generate` at a small Uni-MoE (2 layers): one of
+     each half per layer in the prefill and in every replayed step.
 
 Tolerances (kernel vs plain version, on the card):
   K1 decode_cross_attention: 1e-5 abs in float32 (sum order only);
@@ -244,6 +254,10 @@ Tolerances (kernel vs plain version, on the card):
      the power, the filterbank and log(mel + 1e-9) (derived in its
      docstring).
   K5 permute_rows: bit for bit (a pure copy).
+  K6 expert_swiglu: 2e-2 of the plain output's largest magnitude (both
+     sum in float32 and round the intermediate to bf16, in another order,
+     so an intermediate can land one bf16 ulp apart); the plain version
+     with the experts' weights moved by one must lie outside it.
   The classifier, card vs CPU (test widths, float32, 3 steps): losses and
      the eval loss within 1e-4 relative; logits within 1e-3 * max(1,
      max|cpu|); parameters and BatchNorm running statistics within 2 *
@@ -300,6 +314,10 @@ K3's `launches_tp_classifier` (rank 0's in the bf16 TP classifier step)
 and `tp_classifier`; K1's and K2's `launches_routes` (phase 31's launches
 by dtype/kv_quant/step_attn/logits_impl) and `routes_ms_per_step`; every
 entry but K5's and K2's shard mode's `launches_rehearsal` (phase 32).
+The entry `expert_swiglu` is K6 (phase 33): its launches in the small
+`generate`, the two-expert decode shape's times as the main fields
+(`device_ms` the two K6 kernels' own; `library_ms` the per-expert cuBLAS
+chain) and every shape's as `*_decode_e{1,2,4}` and `*_prefill`.
 The last line is {"ok": true, "device": {...}}. Nothing of JAX is
 imported.
 """
@@ -324,6 +342,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 K1_TOL_F32, K1_TOL_BF16, K2_GAP, K3_TOL = 1e-5, 2e-2, 1e-3, 2e-4
 K4_TOL_F32, K4_ULPS_BF16 = 2e-5, 2
+K6_TOL = 2e-2
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # traces taken of one profiled function before an empty one fails it
@@ -3157,6 +3176,167 @@ def check_rehearsal(torch, _build, smi):
             "wall_s": wall, "loss_curve": curve}
 
 
+# ---------------------------------------------------------------------------
+# phase 33: K6, the grouped SwiGLU expert GEMM
+# ---------------------------------------------------------------------------
+
+# Uni-MoE-2.0-Omni's widths (hidden, expert width, routed experts) and the
+# omni cell's K6 calls: a decode step's 64 slots (32 rows x 2) on one, two
+# and four experts, and a prefill's 31,248 slots (15,624 tokens x 2) with
+# about 18,900 routed; the other slots are null or not kept
+K6_D, K6_F, K6_E = 3584, 18944, 4
+K6_CASES = (("decode_e1", 64, (38, 0, 0, 0)), ("decode_e2", 64, (19, 19, 0, 0)),
+            ("decode_e4", 64, (10, 10, 9, 9)),
+            ("prefill", 31248, (6000, 4400, 4900, 3600)))
+K6 = ("expert_gate_up", "expert_down")
+
+
+def k6_bound(counts, m):
+    """(bound_ms, bound_by) of one K6 call: the active experts' weights,
+    the routed rows read, their (rows, F) intermediate written and read
+    in bf16, the (m, D) output written; 6 D F operations a routed row."""
+    rows, active = sum(counts), sum(c > 0 for c in counts)
+    moved = 2 * (active * 3 * K6_D * K6_F + rows * K6_D + m * K6_D
+                 + 2 * rows * K6_F)
+    return bound(moved, 6 * K6_D * K6_F * rows, BF16_FLOPS)
+
+
+def _k6_omni_launches(torch, _build, smi):
+    """K6's launches on its main path: `OmniPipeline.generate` at a small
+    Uni-MoE (hidden 256, 2 layers, bf16) on the card, the second call of
+    a shape (its decode graphs captured by the first): one launch of each
+    half per layer in the prefill and in every replayed step, no plain
+    call."""
+    from audio_transformers_tpu_torch.core.config import (OmniConfig,
+                                                          UniMoEConfig,
+                                                          WhisperConfig)
+    from audio_transformers_tpu_torch.infer.omni import OmniPipeline, seeded
+    import numpy as np
+    llm = UniMoEConfig(vocab_size=1024, hidden_size=256, num_layers=2,
+                       num_heads=4, num_kv_heads=2, mrope_section=(8, 12, 12),
+                       expert_size=256, shared_size=128)
+    cfg = OmniConfig(whisper=WhisperConfig.test(), llm=llm, audio_tokens=8)
+    pipe = OmniPipeline(seeded(cfg, 33, router_scale=8.0), cfg,
+                        device="cuda")
+    rng = np.random.default_rng(33)
+    audio = [0.1 * rng.standard_normal(n).astype(np.float32)
+             for n in (30000, 50000, 9000)]
+    prompts = [list(range(1, 13)), list(range(40, 60)), list(range(9, 19))]
+    new = 6
+    pipe.generate(audio, prompts, new)
+    torch.cuda.synchronize()
+    _build.reset_stats()
+    pipe.generate(audio, prompts, new)
+    torch.cuda.synchronize()
+    stats = _launches()
+    want = llm.num_layers * new
+    for name in K6:
+        require(stats[name] == (want, 0),
+                f"phase 33: {name} launches, plain calls {stats[name]} in "
+                f"a {new}-token generate at {llm.num_layers} layers; want "
+                f"({want}, 0)")
+    log(f"K6 in OmniPipeline.generate ({smi}; hidden 256, "
+        f"{llm.num_layers} layers, 3 rows, {new} tokens): {want} launches "
+        f"of each half, no plain call")
+    return want
+
+
+def check_k6(torch, _build, smi):
+    """Phase 33: K6 (`ops/expert_gemm.expert_swiglu`) at the published
+    widths and the omni cell's shapes (K6_CASES), bf16: against its plain
+    version on the same inputs within K6_TOL of the plain output's
+    largest magnitude (the plain version with each expert's weights moved
+    to the next expert must lie outside it, so the tolerance fails a
+    wrong expert), the slots past offsets[E] zero, two launches
+    bit-equal, one launch of each half a call by the wrapper's counter
+    and two K6 kernels a call by the profiler; the time per call (CUDA
+    events), the kernels' device time, the plain version's time, and one
+    cuBLAS GEMM chain per active expert on host-known row ranges as the
+    library call; then its launches on the main path
+    (`_k6_omni_launches`). Returns (K6's kernel entry, max error)."""
+    import numpy as np
+    from audio_transformers_tpu_torch.ops import expert_gemm as eg
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(33)
+
+    def w(shape, fan_in):
+        return ((torch.rand(shape, generator=gen, device="cuda") * 2 - 1)
+                / fan_in ** 0.5).to(torch.bfloat16)
+    wg, wu = w((K6_E, K6_F, K6_D), K6_D), w((K6_E, K6_F, K6_D), K6_D)
+    wd = w((K6_E, K6_D, K6_F), K6_F)
+    results, worst = {}, 0.0
+    for name, m, counts in K6_CASES:
+        x = torch.randn((m, K6_D), generator=gen, device="cuda").bfloat16()
+        off = torch.tensor(np.cumsum((0,) + counts), dtype=torch.int32,
+                           device="cuda")
+        rows = sum(counts)
+        stats = [_build.STATS[k] for k in K6]
+        before = [(s.launches, s.plain_cuda_calls) for s in stats]
+        got = eg.expert_swiglu(x, off, wg, wu, wd)
+        got2 = eg.expert_swiglu(x, off, wg, wu, wd)
+        require([(s.launches - a, s.plain_cuda_calls - p) for s, (a, p)
+                 in zip(stats, before)] == [(2, 0), (2, 0)],
+                f"K6 {name}: one launch of each half a call, no plain call")
+        want = eg.expert_swiglu_reference(x, off, wg, wu, wd)
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max()) / scale
+        require(torch.equal(got, got2), f"K6 {name}: two launches differ")
+        require(not got[rows:].any(), f"K6 {name}: slots past offsets[E] "
+                "are not zero")
+        require(err <= K6_TOL, f"K6 {name}: {err:.3g} of the plain output's "
+                f"largest magnitude, over {K6_TOL}")
+        shifted = eg.expert_swiglu_reference(
+            x, off, wg.roll(1, 0), wu.roll(1, 0), wd.roll(1, 0))
+        wrong = float((shifted[:rows].float() - want[:rows].float())
+                      .abs().max()) / scale
+        require(wrong > K6_TOL, f"K6 {name}: experts moved by one lie "
+                f"within the tolerance ({wrong:.3g})")
+        del got2, shifted
+        worst = max(worst, err)
+
+        def kernel():
+            eg.expert_swiglu(x, off, wg, wu, wd)
+
+        starts = np.cumsum((0,) + counts).tolist()
+
+        def library():
+            y = torch.zeros_like(x)
+            for e, (a, n) in enumerate(zip(starts, counts)):
+                if n:
+                    xe = x[a:a + n]
+                    y[a:a + n] = (F.silu(xe @ wg[e].t()) * (xe @ wu[e].t())
+                                  ) @ wd[e].t()
+            return y
+        events = kernel_events(kernel)
+        ours = [us for k, us in events if "k6_" in k]
+        require(len(ours) == 2 * 20, f"K6 {name}: {len(ours)} K6 kernels "
+                f"for 20 calls")
+        bnd = k6_bound(counts, m)
+        t = {"ms": time_ms(kernel), "device_ms": sum(ours) / 20 / 1e3,
+             "plain_ms": time_ms(lambda: eg.expert_swiglu_reference(
+                 x, off, wg, wu, wd), reps=3, warmup=1),
+             "library_ms": time_ms(library), "bound_ms": bnd[0],
+             "bound_by": bnd[1]}
+        log(f"K6 {name} ({smi}; M={m}, rows {counts}): {err:.3g} of the "
+            f"plain output's largest magnitude (experts moved by one: "
+            f"{wrong:.3g}), two launches bit-equal; per call kernel "
+            f"{t['ms']:.4f} ms, device {t['device_ms']:.4f} ms (the two K6 "
+            f"kernels), plain {t['plain_ms']:.2f} ms, cuBLAS per expert "
+            f"{t['library_ms']:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}, "
+            f"{100 * bnd[0] / t['device_ms']:.1f}% of it by device time)")
+        results[name] = t
+        del x, got, want
+    del wg, wu, wd
+    torch.cuda.empty_cache()
+    launches = _k6_omni_launches(torch, _build, smi)
+    e2 = results["decode_e2"]
+    return {"name": "expert_swiglu", "route": "cuda",
+            "source": "audio_transformers_tpu_torch/csrc/expert_gemm_sm90.cu",
+            "replaces": None, "launches": launches, "max_abs_err": worst,
+            **e2, **{f"{k}_{name}": v for name, t in results.items()
+                       for k, v in t.items()}}, worst
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3402,6 +3582,11 @@ def main() -> int:
     rehearsal = check_rehearsal(torch, _build, smi[0])
     log(f"phases 31-32: {time.perf_counter() - t0:.1f} s")
 
+    # 33. K6 at Uni-MoE-2.0-Omni's widths, and on its main path
+    t0 = time.perf_counter()
+    k6_entry, err["expert_swiglu"] = check_k6(torch, _build, smi[0])
+    log(f"phase 33: {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     for name in SERVING:
         t4, t16 = times[4][name], times[16][name]
@@ -3503,6 +3688,7 @@ def main() -> int:
         if entry["name"] in ("decode_cross_attention", "log_mel"):
             entry["launches_tp_rank0"] = bf16["launches_rank0"][
                 entry["name"]]
+    kernels.append(k6_entry)
     log(f"K2 rows below the top-2 gap {K2_GAP} (not compared): {below}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
