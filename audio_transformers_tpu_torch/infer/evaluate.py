@@ -46,7 +46,8 @@ def _decode_batch(params, cfg: EmotionWhisperConfig, mel_cfg: MelConfig,
     suppress_ids = wdecode.default_suppress_ids(w)
     wav = torch.from_numpy(np.ascontiguousarray(waveform, np.float32))
     mel = log_mel(wav.to(device), mel_cfg).to(compute_dtype)
-    enc = wm.encode(params["whisper"], w, mel)
+    enc = wm.encode(params["whisper"], w, mel,
+                    attn_impl=wm.resolve_encoder_attn(mel.device, mel.dtype))
     if dcfg.num_beams > 1:
         # beam search is deterministic: the compression-ratio fallback, a
         # rescue of degenerate greedy output, does not apply

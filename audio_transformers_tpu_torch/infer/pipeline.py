@@ -3,9 +3,11 @@
 The port of `audio_transformers_tpu/infer/pipeline.EmotionWhisperPipeline`
 with the same surface (`analyze_windows`, `transcribe`, `analyze`) and the
 same batching: model windows are stacked into power-of-two buckets capped
-at `max_batch`, each bucket goes through log-mel -> encoder -> greedy
-decode, or beam search with `num_beams` > 1 (repetition penalty 1.15,
-no-repeat 3-gram) -> emotion head on the decode's hidden states. A
+at `max_batch`, each bucket goes through log-mel -> encoder (its
+self-attention through K4a for bfloat16 on the card,
+`model.resolve_encoder_attn`) -> greedy decode, or beam search with
+`num_beams` > 1 (repetition penalty 1.15, no-repeat 3-gram) -> emotion
+head on the decode's hidden states. A
 pipeline loads from the port's checkpoints (`from_checkpoint`), from HF
 directories (`from_hf_dir`, also the JAX package's exports), or takes
 bridged or seeded parameters (`core.params`). It runs on the card unless
@@ -183,7 +185,9 @@ class EmotionWhisperPipeline:
         wav = torch.from_numpy(np.ascontiguousarray(windows)).to(self.device)
         with tracing.span("log_mel"):
             mel = log_mel(wav, self.mel_cfg).to(self.compute_dtype)
-        enc = wm.encode(self.params["whisper"], w, mel)
+        enc = wm.encode(self.params["whisper"], w, mel,
+                        attn_impl=wm.resolve_encoder_attn(mel.device,
+                                                          mel.dtype))
         if dcfg.num_beams > 1:
             # deterministic, so the compression-ratio fallback (a rescue of
             # degenerate greedy output) does not apply, as in the reference

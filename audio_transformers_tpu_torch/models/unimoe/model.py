@@ -563,7 +563,8 @@ def logits(hidden: Tensor, table_t: Tensor, vocab: int) -> Tensor:
 def audio_embeddings(params: dict, cfg: OmniConfig, mel: Tensor) -> Tensor:
     """Log-mel windows (W, T_mel, n_mels) -> (W, audio_tokens, D) in mel's
     dtype: the whisper encoder, pooled over time, projected."""
-    enc = wm.encode(params["whisper"], cfg.whisper, mel)      # (W, 1500, Dw)
+    enc = wm.encode(params["whisper"], cfg.whisper, mel,      # (W, 1500, Dw)
+                    attn_impl=wm.resolve_encoder_attn(mel.device, mel.dtype))
     pooled = F.adaptive_avg_pool1d(enc.float().transpose(1, 2),
                                    cfg.audio_tokens).transpose(1, 2)
     return nn.linear(params["connector"], pooled.to(enc.dtype))

@@ -14,8 +14,9 @@ trees (`core.params`):
            precomputed encoder K/V, MLP) -> LN
 
 The full-sequence passes take attn_impl "xla" (matmul + float32 softmax)
-or "flash" (the flash-attention kernels, `ops/attention.py`), and remat
-(`torch.utils.checkpoint` over each block, as the reference's
+or "flash" (the flash-attention kernels, `ops/attention.py`; the serving
+callers pass `resolve_encoder_attn`'s choice to the encoder), and
+remat (`torch.utils.checkpoint` over each block, as the reference's
 jax.checkpoint). In the
 decode step, self and cross K/V keep the reference's time-minor
 (B, H, hd, T) layout.
@@ -134,6 +135,17 @@ def _recomputed(block, *args):
         return block(*args)
 
 
+def resolve_encoder_attn(device, dtype) -> str:
+    """The encoder's self-attention route for a mel on `device` in `dtype`:
+    "flash" (K4a, `ops.attention.flash_attention`) for bfloat16 on CUDA,
+    where q and k are multiplied on the tensor cores and no (B, H, T, T)
+    float32 logits are written; "xla" (the reference's arithmetic)
+    otherwise: on the CPU and for float32."""
+    if torch.device(device).type == "cuda" and dtype == torch.bfloat16:
+        return "flash"
+    return "xla"
+
+
 def encode(params: dict, cfg: WhisperConfig, mel: Tensor, *,
            remat: bool = False, attn_impl: str = "xla",
            model_group=None) -> Tensor:
@@ -142,7 +154,10 @@ def encode(params: dict, cfg: WhisperConfig, mel: Tensor, *,
 
     attn_impl: "xla" (matmul + float32 softmax), "flash" (the flash
     attention kernels, forward and backward) or "auto", which is "xla"
-    here as in the reference; the trainer resolves its own "auto". The
+    here as in the reference; the trainer resolves its own "auto", and the
+    serving callers pass `resolve_encoder_attn`'s choice for mel. Each
+    call counts its route (`encode.attn.flash`, `encode.attn.xla`) with
+    the recorder on. The
     positional table is frozen, as in the reference (stop_gradient): it
     takes no gradient. remat=True recomputes each block's activations in
     the backward instead of keeping them. With a `model_group`, `params`
@@ -153,6 +168,7 @@ def encode(params: dict, cfg: WhisperConfig, mel: Tensor, *,
         attn_impl = "xla"
     p = params["encoder"]
     with tracing.span("encode", device=mel.device):
+        tracing.count(f"encode.attn.{attn_impl}")
         x = nn.gelu(nn.conv1d(p["conv1"], mel, padding=1))
         x = nn.gelu(nn.conv1d(p["conv2"], x, stride=2, padding=1))
         x = x + p["pos"].detach()[None, : x.shape[1], :].to(x.dtype)

@@ -39,9 +39,11 @@ each raising on failure:
      (plain versions);
   5. the serving path: EmotionWhisperPipeline.analyze of a 12 s clip at the
      full width of whisper-tiny (seeded random weights, bfloat16), with
-     every kernel's launch counter reset just before and read just after;
-     then K1's device records (dca_split, torch.profiler) over three more
-     calls, whose decodes replay a captured step, equal to the launches
+     every kernel's launch counter reset just before and read just after:
+     K1, K2, K3 and K4a (the encoder's self-attention, one launch a layer
+     in each `encode`) launched; then K1's device records (dca_split,
+     torch.profiler) over three more calls, whose decodes replay a
+     captured step, equal to the launches
      `_build.STATS` counts for them;
   6. the HTTP server on 127.0.0.1 with the micro-batcher, answering three
      concurrent /analyze requests;
@@ -55,7 +57,11 @@ each raising on failure:
      with the backend SDPA chose, and the kernels' device time
      (torch.profiler); in bfloat16 K4a/K4b/K4c are the tensor-core
      kernels of csrc/flash_attention_sm90.cu, in float32 the FMA kernels
-     of csrc/flash_attention.cu;
+     of csrc/flash_attention.cu; then K4a alone at the serving encoder's
+     shape (B*H = 1280: 64 windows of whisper-large-v3's 20 heads,
+     1500 x 1500, d = 64, non-causal, bfloat16) against its plain version
+     at the same tolerance, two launches bit-equal, its per-call, device
+     and bound times beside SDPA's forward (per call and device);
   8. correctness of one train step on a small input: the test config in
      float32, kernels on the card against plain versions on the CPU;
   9. the training path: the train_whisper CLI on whisper-tiny (bfloat16,
@@ -304,7 +310,9 @@ beside phase 26's step times and `average_gradients` time (in a group
 of one: the flatten, divide and copy back; NCCL over one rank launches
 no kernel) and phase 27's errors;
 every K4 entry's `launches_remat` (phase 25's step with remat), and
-K4a's `remat_*` fields (phase 25's peak MiB and ms per step). The entry
+K4a's `remat_*` fields (phase 25's peak MiB and ms per step),
+`launches_serving` (phase 5's analyze) and `serve_*` (phase 7's serving
+shape). The entry
 `fused_greedy_step_partials` is K2's vocab-shard mode: its launches on
 rank 0 of phase 30's bf16 decode, phase 29's times at t = 2 and B = 4
 (and `*_t{2,4}_b{1,4,16,128}`), and phase 30's results (`tp_decode`,
@@ -378,6 +386,9 @@ N_BEAMS = 4
 K4_SHAPES = (("encoder", 1500, 1500, False), ("decoder", 31, 31, True),
              ("cross", 31, 1500, False), ("ragged65", 65, 65, True),
              ("ragged129", 129, 1500, False))
+# the serving encoder's self-attention (`large-v3-offline-b64`): 64
+# windows x 20 heads, T, forward only, non-causal
+K4_SERVE = (64, 20, 1500)
 
 
 def synth_clip(duration, sr, *, freq=440.0, noise=0.05, seed=0):
@@ -425,15 +436,16 @@ def time_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def kernel_events(fn, reps=20):
+def kernel_events(fn, reps=20, whole=None):
     """[(name, us)] of the kernels `reps` calls of fn() launched, from
     torch.profiler after a warm-up call and one more call inside the
     profiler's warm-up cycle, which it does not record (the records of
     the first kernels after the profiler starts go missing now and then:
     19 of 20 one-kernel calls, as `profiled_window` found). A trace that
-    holds no kernel, or a count that is no whole multiple of `reps`, is
-    taken again, up to PROFILE_TRIES times, and said so; when none is
-    whole, the fullest is returned."""
+    holds no kernel, or that `whole(events)` rejects (by default: a count
+    that is no whole multiple of `reps`), is taken again, up to
+    PROFILE_TRIES times, and said so; when none is whole, the fullest is
+    returned."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -453,7 +465,7 @@ def kernel_events(fn, reps=20):
             prof.step()
         events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
-        if events and len(events) % reps == 0:
+        if events and (whole(events) if whole else len(events) % reps == 0):
             return events
         log(f"the profiler's trace {attempt + 1} of {PROFILE_TRIES} holds "
             f"{len(events)} kernels for {reps} calls")
@@ -1145,6 +1157,58 @@ def check_k4(torch, att, gen, times):
             + f"; SDPA forward {lib_fwd:.4f} ms ({fwd_op}), backward (dq, "
             f"dk, dv) {lib_bwd:.4f} ms ({bwd_op})")
     return worst
+
+
+def check_k4_serving(torch, att, gen, times):
+    """K4a at the serving encoder's shape (K4_SERVE, bf16, d = 64)
+    against its plain version, two launches bit-equal; its per-call,
+    device and bound times beside SDPA's forward on the same operands.
+    Returns its error."""
+    b, h, t = K4_SERVE
+    bh, d = b * h, 64
+    q = (torch.randn((bh, t, d), generator=gen, device="cuda") / 8.0
+         ).to(torch.bfloat16)
+    k, v = (torch.randn((bh, t, d), generator=gen, device="cuda"
+                        ).to(torch.bfloat16) for _ in range(2))
+    with torch.inference_mode():
+        out, lse = att.flash_attention_fwd(q, k, v, False)
+        out2, lse2 = att.flash_attention_fwd(q, k, v, False)
+        p_out, p_lse = att.flash_attention_fwd_reference(q, k, v, False)
+        torch.cuda.synchronize()
+        require(torch.equal(out, out2) and torch.equal(lse, lse2),
+                "K4a serve: two launches differ")
+        lse_err = (lse - p_lse).abs().max().item()
+        require(lse_err <= 1e-4, f"K4a serve lse: {lse_err}")
+        err, tol = _k4_err(out, p_out, torch.bfloat16)
+        require(out.dtype == torch.bfloat16 and out.shape == p_out.shape,
+                "K4a serve: dtype/shape")
+        require(err <= tol, f"K4a serve bf16: {err} > {tol}")
+        del out2, lse2, p_out, p_lse
+        bnd = bound(nbytes(q, k, v, q) + 4 * bh * t, 4 * bh * t * t * d,
+                    BF16_FLOPS)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qs, ks, vs = (x.view(b, h, t, d) for x in (q, k, v))
+
+        def lib():
+            return sdpa(qs, ks, vs, scale=1.0)
+        res = {"ms": time_ms(lambda: att.flash_attention_fwd(q, k, v, False)),
+               "plain_ms": time_ms(lambda: att.flash_attention_fwd_reference(
+                   q, k, v, False), reps=5),
+               "device_ms": device_ms(
+                   lambda: att.flash_attention_fwd(q, k, v, False)),
+               "bound_ms": bnd[0], "bound_by": bnd[1],
+               "library_ms": time_ms(lib), "library_device_ms": device_ms(lib),
+               "max_abs_err": err}
+        backend = sdpa_backend(lib)
+    times["serve"] = {"flash_attention_fwd": res}
+    log(f"K4a serve (B*H {bh}, T {t}, d {d}, bf16) max_abs_err {err:.3e} "
+        f"(limit {tol:.3e}), lse {lse_err:.3e}; two launches bit-equal; "
+        f"per call {res['ms']:.4f} ms, device {res['device_ms']:.4f} ms, "
+        f"plain {res['plain_ms']:.4f} ms, bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}; {100 * bnd[0] / res['device_ms']:.1f}% by device "
+        f"time); SDPA forward {res['library_ms']:.4f} ms, device "
+        f"{res['library_device_ms']:.4f} ms ({backend})")
+    return err
 
 
 def train_batch(b, duration, w, n_classes, seed, max_len=32):
@@ -3307,7 +3371,10 @@ def check_k6(torch, _build, smi):
                     y[a:a + n] = (F.silu(xe @ wg[e].t()) * (xe @ wu[e].t())
                                   ) @ wd[e].t()
             return y
-        events = kernel_events(kernel)
+        # a trace also holds records that are not K6's (the output's zero
+        # fill), whose count varies: a whole trace holds every K6 record
+        events = kernel_events(kernel, whole=lambda ev: sum(
+            "k6_" in k for k, _ in ev) == 2 * 20)
         ours = [us for k, us in events if "k6_" in k]
         require(len(ours) == 2 * 20, f"K6 {name}: {len(ours)} K6 kernels "
                 f"for 20 calls")
@@ -3436,6 +3503,12 @@ def main() -> int:
     for name in SERVING:
         require(stats[name][0] > 0,
                 f"{name} was not launched on the serving path")
+    # bf16 on the card: the encoder's self-attention is K4a, a launch a
+    # layer in each encode
+    k4a_serving = stats["flash_attention_fwd"][0]
+    require(k4a_serving > 0 and k4a_serving % w.encoder_layers == 0,
+            f"K4a: {k4a_serving} launches on the serving path, not one a "
+            f"layer of each encode")
     t0 = time.perf_counter()
     pipe.analyze(clip, 16000)
     torch.cuda.synchronize()
@@ -3454,6 +3527,12 @@ def main() -> int:
             "bf16 K4a/K4b/K4c route to csrc/flash_attention_sm90.cu")
     k4_times = {}
     err.update(check_k4(torch, att, gen, k4_times))
+    # its own generator, so that the phases after it see the inputs they
+    # saw before it was added
+    serve_err = check_k4_serving(
+        torch, att, torch.Generator(device="cuda").manual_seed(7), k4_times)
+    err["flash_attention_fwd"] = max(err["flash_attention_fwd"], serve_err)
+    torch.cuda.empty_cache()
 
     # 8. one train step at the test config: card vs CPU
     check_small_train_step(torch, port_core, init)
@@ -3634,6 +3713,7 @@ def main() -> int:
                         "launches_rehearsal": rehearsal["launches"][name]}
         if name == "flash_attention_fwd":
             remat_fields.update(remat)
+            remat_fields["launches_serving"] = k4a_serving
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],
                         "launches": train_launches[name], **remat_fields,
@@ -3641,7 +3721,7 @@ def main() -> int:
                         **k4_times["encoder"][name],
                         **{f"{shape}_{k}": v
                            for shape in k4_times if shape != "encoder"
-                           for k, v in k4_times[shape][name].items()
+                           for k, v in k4_times[shape].get(name, {}).items()
                            if k != "library"}})
     k5 = k5_times[(64, "bf16")]
     kernels.append({
